@@ -5,7 +5,7 @@ its layout: ``ops`` (convs, instance norm and its CUDA kernel), ``models``,
 ``data``, ``train``, ``utils``, ``config`` and the ``cycle_gan`` CLI. It imports
 torch and never jax, and nothing of ``gan_tpu``.
 
-The first slice is CycleGAN ``--predict``; training is not ported yet.
+It runs CycleGAN ``--train`` and ``--predict``; Pix2Pix is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,6 @@
-"""Host-side decode + deterministic resize into a uint8 cache — the CycleGAN
-val/test/predict path (counterpart of gan_tpu/data/decode.py,
-gan_tpu/data/pipeline.py ``build_cyclegan_cache(train=False)`` and
-gan_tpu/ops/resize.py ``resize_nearest_np``).
+"""Host-side decode + deterministic resize into CycleGAN's uint8 caches
+(counterpart of gan_tpu/data/decode.py, gan_tpu/data/pipeline.py
+``build_cyclegan_cache`` and gan_tpu/ops/resize.py ``resize_nearest_np``).
 
 PIL is imported inside :func:`decode_image`, so the package imports without it.
 """
@@ -11,6 +10,8 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from gan_tpu_torch.data.augment import JITTER_PAD
 
 
 def decode_image(path: str, channels: int) -> np.ndarray:
@@ -40,12 +41,17 @@ def resize_nearest_np(image: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def build_cyclegan_cache(paths: list[str], *, img_size: int, channels: int,
-                         workers: int = 16) -> np.ndarray:
-    """(N, S, S, C) uint8: decode, then nearest-resize to ``img_size``."""
+                         train: bool = False, workers: int = 16) -> np.ndarray:
+    """(N, S', S', C) uint8: decode, then nearest-resize to ``img_size``; for
+    ``train``, resize again to S' = img_size + 30, the reference's jitter
+    pre-resize, so the device augment only crops and mirrors."""
+    size = img_size + JITTER_PAD if train else img_size
+
     def one(path):
-        return resize_nearest_np(decode_image(path, channels), img_size, img_size)
+        img = resize_nearest_np(decode_image(path, channels), img_size, img_size)
+        return resize_nearest_np(img, size, size) if train else img
 
     if not paths:
-        return np.zeros((0, img_size, img_size, channels), np.uint8)
+        return np.zeros((0, size, size, channels), np.uint8)
     with ThreadPoolExecutor(max_workers=workers) as ex:
         return np.stack(list(ex.map(one, paths)))

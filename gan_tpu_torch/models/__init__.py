@@ -1,5 +1,6 @@
-"""U-Net generator as ``nn.Module``s (PatchGAN comes with training)."""
+"""U-Net generator and PatchGAN discriminator as ``nn.Module``s."""
 
+from gan_tpu_torch.models.patchgan import PatchGANDiscriminator
 from gan_tpu_torch.models.unet import UNetGenerator
 
-__all__ = ["UNetGenerator"]
+__all__ = ["PatchGANDiscriminator", "UNetGenerator"]

@@ -56,7 +56,7 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, self.scale, self.offset)
 
 
-def _norm(norm: str, c: int, generator):
+def norm_layer(norm: str, c: int, generator):
     if norm == "instance":
         return InstanceNorm(c, generator)
     if norm == "batch":
@@ -69,7 +69,7 @@ class Downsample(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = conv_kernel_init((c_out, c_in, 4, 4), generator)
-        self.norm = _norm(norm, c_out, generator) if apply_norm else None
+        self.norm = norm_layer(norm, c_out, generator) if apply_norm else None
 
     def forward(self, x, *, compute_dtype=None):
         x = conv2d_down(x, self.conv, compute_dtype=compute_dtype)
@@ -83,7 +83,7 @@ class Upsample(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = conv_kernel_init((c_in, c_out, 4, 4), generator)
-        self.norm = _norm(norm, c_out, generator)
+        self.norm = norm_layer(norm, c_out, generator)
 
     def forward(self, x, *, compute_dtype=None, drop_generator=None, drop_mask=None):
         x = conv2d_transpose_up(x, self.conv, compute_dtype=compute_dtype)

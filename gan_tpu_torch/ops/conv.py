@@ -61,6 +61,15 @@ def conv2d_down(x, w, *, compute_dtype=None):
     return conv2d_same(x, w, 2, compute_dtype=compute_dtype)
 
 
+def conv2d_valid(x, w, *, pad: int = 0, compute_dtype=None):
+    """Stride-1 VALID conv of ``x`` zero-padded by ``pad`` on each spatial
+    side: the PatchGAN's ZeroPadding2D(1) → Conv(k4 s1 'valid') pairs
+    (gan_tpu/ops/conv.py:108-116 after ``jnp.pad``), the pad folded into the
+    conv. x: (N, H, W, C_in); w: (C_out, C_in, k, k)."""
+    x, w = _cast(x, w, compute_dtype)
+    return _nhwc(F.conv2d(_nchw(x), w, stride=1, padding=pad))
+
+
 def conv2d_transpose_up(x, w, stride: int = 2, *, compute_dtype=None):
     """Stride-``s`` 'same' transposed conv (TF ``Conv2DTranspose``), the exact
     adjoint of :func:`conv2d_same`. x: (N, H, W, C_in); w: (C_in, C_out, k, k).

@@ -3,6 +3,10 @@
     <output>/YYYY-MM-DD-HHhMM/
         logs/Log.txt            (stdout+stderr redirect when --logging true)
         logs/config.json
+        logs/train_metrics.json, logs/val_metrics.json   (train mode)
+        figs/<title>.png        (one per loss key)
+        test_images/epoch_{N}.png
+        final_test_imgs/img{N}.png
         training_checkpoints/<epoch>/
         prediction_images/img{N}.png                     (predict mode)
 """
@@ -20,6 +24,18 @@ from datetime import datetime
 class RunDirs:
     root: str        # <output>/<timestamp>
     logs: str
+
+    @property
+    def checkpoints(self) -> str:
+        return os.path.join(self.root, "training_checkpoints")
+
+    @property
+    def figs(self) -> str:
+        return os.path.join(self.root, "figs")
+
+    @property
+    def final_test_imgs(self) -> str:
+        return os.path.join(self.root, "final_test_imgs")
 
 
 def make_run_dirs(output: str, *, timestamp: str | None = None) -> RunDirs:

@@ -26,6 +26,8 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
         "import gan_tpu_torch, gan_tpu_torch.cycle_gan, gan_tpu_torch.transplant\n"
         "import gan_tpu_torch.train.cyclegan_trainer, gan_tpu_torch.ops.kernels\n"
         "import gan_tpu_torch.data.pipeline, gan_tpu_torch.utils\n"
+        "import gan_tpu_torch.models.patchgan, gan_tpu_torch.losses, gan_tpu_torch.ops.loss_ops\n"
+        "import gan_tpu_torch.train.optim, gan_tpu_torch.train.loop, gan_tpu_torch.utils.figs\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'PIL', 'matplotlib',\n"

@@ -11,7 +11,7 @@ import torch
 import gan_tpu.models.blocks as jax_blocks
 from gan_tpu.models import UNetGenerator as JaxUNet
 from gan_tpu_torch.models import UNetGenerator
-from gan_tpu_torch.transplant import state_dict_to_unet_params, unet_params_to_state_dict
+from gan_tpu_torch.transplant import state_dict_to_params, params_to_state_dict
 
 
 def _pair(depth, seed=0, in_channels=1):
@@ -24,7 +24,7 @@ def _pair(depth, seed=0, in_channels=1):
         lambda path, a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
         if path[-1].key == "offset" else a, params)
     gen = UNetGenerator(in_channels, in_channels, norm="instance", depth=depth)
-    gen.load_state_dict(unet_params_to_state_dict(params))
+    gen.load_state_dict(params_to_state_dict(params))
     return jax_gen, params, gen
 
 
@@ -85,7 +85,7 @@ def test_dropout_generator_is_deterministic():
 
 def test_transplant_round_trip():
     _, params, gen = _pair(depth=5, seed=3)
-    back = state_dict_to_unet_params(gen.state_dict())
+    back = state_dict_to_params(gen.state_dict())
     flat_a = jax.tree_util.tree_leaves_with_path(params)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]

@@ -1,7 +1,8 @@
 """The port's CycleGAN predict slice on the CPU: a gan_tpu CycleGANTrainer's
 generators are transplanted into a port checkpoint, ``python -m
 gan_tpu_torch.cycle_gan --predict`` writes gan_tpu's output tree, and the
-port's generate_batched matches gan_tpu's generator on the same weights."""
+port's generate_batched matches gan_tpu's generator on the same weights. Also
+the flags and the checkpoint manager both modes share."""
 
 import dataclasses
 import glob
@@ -25,7 +26,7 @@ from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan
 from gan_tpu_torch.cycle_gan import main as port_main
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
-from gan_tpu_torch.transplant import unet_params_to_state_dict
+from gan_tpu_torch.transplant import params_to_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_IMAGES = 5
@@ -50,7 +51,7 @@ def transplanted_run(tmp_path_factory):
                                     + ["--num-devices", "1"])
     jax_trainer = JaxTrainer(cfg)
     params = jax.device_get(jax_trainer.params)
-    state = {"params": {k: unet_params_to_state_dict(params[k]) for k in ("gen_g", "gen_f")}}
+    state = {"params": {k: params_to_state_dict(params[k]) for k in ("gen_g", "gen_f")}}
     run = root / "run"
     CheckpointManager(str(run / "training_checkpoints"), max_to_keep=3).save(5, state)
     return images, run, jax_trainer
@@ -163,9 +164,12 @@ def test_checkpoint_manager_restore_creates_nothing(tmp_path):
         CheckpointManager(str(tmp_path), max_to_keep=0)
 
 
-def test_train_is_refused(tmp_path):
+@pytest.mark.parametrize("flags", [["--resume", "r"], ["--checkpoint-every", "2"],
+                                   ["--num-devices", "2"]], ids=lambda f: f[0])
+def test_train_is_refused(tmp_path, flags):
+    """--train runs, but not with the flags whose paths are not ported yet."""
     argv = ["--input-images", str(tmp_path), "--target-images", str(tmp_path), "--output",
-            str(tmp_path / "out"), "--train", "--epochs", "1", "--img-size", "32"]
+            str(tmp_path / "out"), "--train", "--epochs", "1", "--img-size", "32", *flags]
     with pytest.raises(SystemExit, match="not ported"):
         port_main(parse_cyclegan(argv))
     assert not (tmp_path / "out").exists()
