@@ -9,32 +9,47 @@ Phases, each printed; any failure raises and the script exits non-zero:
    off for the fp32 comparisons;
 2. build the CUDA kernels from ``gan_tpu_torch/csrc`` with nvcc (sm_90a);
 3. the instance-norm forward kernel (K1) against its plain PyTorch version
-   at every instance-norm shape of the 256² generator at batch 16, in fp32
-   and bf16, for each activation epilogue, with the device time of both
-   (CUDA graph replays timed with CUDA events), of ``F.instance_norm``
-   (``F.group_norm`` at H·W = 1, which ``F.instance_norm`` refuses) and the
-   bound;
-4. the predict slice: the port's CycleGAN trainer at 256², depth 8, bf16,
-   from seeded random weights, saved and restored through its checkpoint
-   manager as ``--predict`` does, runs ``generate_batched`` on 32 seeded
-   uint8 images; K1's launch count must be 14 per generator pass, and the
-   output must agree with the same model run with the plain instance norm;
-5. torch.profiler over 5 generator forwards, kernel and plain path: device
-   time by kernel group, and the card's idle share of the eager forward;
+   at every norm site of the 256² generator at batch 16, in fp32 and bf16,
+   for each activation epilogue and with batch norm's epsilon (Pix2Pix's
+   per-image batch norm), with the device time of both (CUDA graph replays
+   timed with CUDA events), of the library (``F.instance_norm``, or
+   ``F.group_norm`` at H·W = 1, which ``F.instance_norm`` refuses; followed
+   by ``F.leaky_relu`` or ``F.relu`` for an epilogue) and the bound;
+4. the stem kernel (S) against its plain version at every stem shape the
+   paths run, in fp32 and bf16, with the device time of both, of the library
+   pair ``F.conv2d`` + ``F.leaky_relu`` and the bound; its backward (dx and
+   dw through cuDNN) against autograd of the plain version at the training
+   shapes;
+5. the CycleGAN predict slice: the port's CycleGAN trainer at 256², depth 8,
+   bf16, from seeded random weights, saved and restored through its
+   checkpoint manager as ``--predict`` does, runs ``generate_batched`` on 32
+   seeded uint8 images; K1 must launch 14 times and S once per generator
+   pass, and the output must agree with the same model on the plain path
+   (``plain_path``: S and K1 swapped for their plain versions); then
+   torch.profiler over 5 generator forwards, kernel and plain path;
 6. the backward kernel (K2), and K1, against their plain versions at every
-   instance-norm shape of a training step (the generator's and the
-   PatchGAN's) at batch 8, in fp32 and bf16, with the device time of K2, of
-   its plain version, of the autograd backward of ``F.instance_norm`` and
-   the bound;
-7. the training slice: ``CycleGANTrainer.fit`` for one epoch at 256², depth
-   8, bf16, batch 8 on seeded uint8 caches (84 X and 88 Y images of 286²,
-   16 + 16 val), with K1 and K2 launch counts derived from the step's
-   structure (``train_step_launches``), a checkpoint round trip of all four
-   networks and Adams, and one step's losses and gradients through the
-   kernels against the same step through the plain instance norm;
-8. the training numbers: the median step time, kernel and plain path in
-   alternating rounds, image-pairs/s, peak device memory, and a
-   torch.profiler breakdown of two steps with the card's idle share.
+   instance-norm shape of a CycleGAN training step at batch 8;
+7. the CycleGAN training slice: ``CycleGANTrainer.fit`` for one epoch at
+   256², depth 8, bf16, batch 8 on seeded uint8 caches (84 X and 88 Y
+   images of 286², 16 + 16 val), with K1, K2 and S launch counts derived from
+   the step's structure, a checkpoint round trip of all four networks and
+   Adams, and one step's losses and gradients through the kernels against
+   the same step on the plain path;
+8. the CycleGAN training numbers: the median step time, kernel and plain
+   path in alternating rounds, image-pairs/s, peak device memory, and a
+   torch.profiler breakdown of two steps with the card's idle share;
+9. the Pix2Pix predict slice: ``Pix2PixTrainer`` at 256², depth 8, bf16,
+   seeded weights with non-zero batch-norm betas, restored through the
+   checkpoint manager, ``generate_batched`` on 32 seeded uint8 images with
+   per-image batch norm: S once and K1 14 times per chunk, the output
+   against the plain path;
+10. the Pix2Pix training slice: ``Pix2PixTrainer.fit`` for one epoch at
+    256², bf16, batch 32 (the README's Pix2Pix quick start) on seeded caches
+    of 261 train pairs at 286² (8 full steps and a 5-row remainder) and 40
+    val pairs (a full step and an 8-row remainder): 3 S launches per step
+    and no K1 or K2, finite losses, both networks changed, a checkpoint round
+    trip, and one step against the plain path;
+11. the Pix2Pix training numbers, as in phase 8.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. No PNGs are written.
@@ -56,13 +71,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gan_tpu_torch.config import parse_cyclegan
-from gan_tpu_torch.data.augment import normalize_batch, single_jitter_batch
+from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
+from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch, single_jitter_batch
 from gan_tpu_torch.models import blocks
 from gan_tpu_torch.models.unet import _DOWN_FILTERS, _UP_SPECS
-from gan_tpu_torch.ops import build, kernels, norm
+from gan_tpu_torch.ops import build, conv, kernels, norm
+from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
-from gan_tpu_torch.train.cyclegan_trainer import NETWORKS, CycleGANTrainer, generator_depth
+from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
 
 IMG_SIZE = 256
 BATCH = 16          # generate_batched's chunk
@@ -70,12 +87,27 @@ N_IMAGES = 32       # two generator passes
 TRAIN_BATCH = 8     # the README's CycleGAN quick start
 # training caches: 84 X rows make 10 full steps and a zip tail of 4 X and 8 Y rows
 N_TRAIN_X, N_TRAIN_Y, N_VAL = 84, 88, 16
+P2P_BATCH = 32      # the README's Pix2Pix quick start
+N_P2P_TRAIN, N_P2P_VAL = 261, 40   # 8 full steps + 5 rows; 1 full step + 8 rows
 SEED = 123
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory, NVIDIA's data sheet
+# dense peaks by input type, NVIDIA's data sheet: bf16 on the tensor cores,
+# fp32 outside them (TF32 is off)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel vs plain, per call. fp32: Welford vs two-pass fp32 sums. bf16: the
 # same fp32 statistics from the same bf16 inputs; the one output rounding may
 # land one bf16 ulp apart (2^-7 relative). K2's dx alike.
 KERNEL_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}   # (atol, rtol)
+# S vs plain. fp32 (TF32 off): 16·C_in products summed in another order than
+# cuDNN's. bf16: the same exact bf16 products summed in fp32; S rounds once
+# after the LeakyReLU, the plain version rounds the conv and then the slope's
+# product: one ulp plus that second rounding.
+STEM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7 + 2 ** -8)}
+# S's backward vs autograd of the plain version, relative L2 error of dx and
+# dw: the same masked dy into cuDNN's convolution_backward; only where the
+# two forwards' signs differ at 0 may the mask differ. fp32: sums in other
+# orders; bf16: cuDNN may pick another algorithm for the other layouts.
+STEM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def sums_tol(count: int) -> float:
@@ -84,26 +116,41 @@ def sums_tol(count: int) -> float:
     return 1e-5 + 1e-7 * count
 
 
-# Whole generator, kernel vs plain norm, at the tanh output. bf16: one-ulp
-# flips in the norm output pass through 15 convs and 13 more norms; a CPU run
-# at depth 6-7 with float64 statistics in place of fp32 drifted by at most
-# 0.006 (mean 7e-4); the bound is 8x that. fp32 (TF32 off): sum-order noise.
+# Whole generator, kernel vs plain path, at the tanh output. bf16: one-ulp
+# flips in the norm and stem outputs pass through 15 convs and 13 more norms;
+# a CPU run at depth 6-7 with float64 statistics in place of fp32 drifted by
+# at most 0.006 (mean 7e-4); the bound is 8x that. fp32 (TF32 off): sum-order
+# noise.
 SLICE_TOL = {"bf16": (0.05, 5e-3), "fp32": (1e-3, 1e-5)}   # (max abs, mean abs)
-# One train step, kernel vs plain norm, from the same state and draws: the 7
+# One train step, kernel vs plain path, from the same state and draws: the
 # losses (relative error) and each network's gradient (relative L2 error).
-# bf16: one-ulp flips in the norms' outputs and dx pass through 6 U-Nets, 4
-# PatchGANs and their backward, and move ReLU/LeakyReLU inputs near 0 to the
-# other slope; either path's bf16 gradients differ from the fp32 ones by
-# 7-14% (a CPU run at 32²). fp32 (TF32 off): on the CPU, fp32 sums in another
-# order gave 3e-3 at a step where one LeakyReLU input took the other slope.
+# bf16: one-ulp flips in the kernels' outputs pass through the networks and
+# their backward, and move ReLU/LeakyReLU inputs near 0 to the other slope;
+# either path's bf16 gradients differ from the fp32 ones by 7-14% (a CPU run
+# at 32²). fp32 (TF32 off): on the CPU, fp32 sums in another order gave 3e-3
+# at a step where one LeakyReLU input took the other slope.
 STEP_TOL = {"bf16": (2e-2, 2e-1), "fp32": (1e-4, 1e-2)}   # (losses, gradients)
 # bf16 against fp32: the kernel path's error at most this factor of the plain
 # path's, plus the slack (the two share the convs' bf16 rounding)
 BF16_FACTOR, BF16_SLACK = 1.5, 1e-3
-KERNEL_SOURCE = "gan_tpu_torch/csrc/instance_norm.cu"
+SOURCES = {"instance_norm_fwd": "gan_tpu_torch/csrc/instance_norm.cu",
+           "instance_norm_bwd": "gan_tpu_torch/csrc/instance_norm.cu",
+           "stem_conv": "gan_tpu_torch/csrc/stem_conv.cu"}
 REPLACES = {"instance_norm_fwd": "gan_tpu/ops/pallas_kernels.py:89",
-            "instance_norm_bwd": "gan_tpu/ops/pallas_kernels.py:128"}
+            "instance_norm_bwd": "gan_tpu/ops/pallas_kernels.py:128",
+            "stem_conv": "benchmarks/pallas_stem_proto.py:46"}
 DISC_NORM_SITES = ((64, 128), (32, 256), (31, 512))   # the PatchGAN's at 256²
+CYCLEGAN_STEMS_PER_STEP = 10   # 6 generator and 4 discriminator forwards
+PIX2PIX_STEMS_PER_STEP = 3   # G(x), D(x, y), D(x, G(x)): one stem each
+# (batch, C_in) of every stem the paths run at 256², and what runs it
+STEM_SHAPES = {(P2P_BATCH, 1): "Pix2Pix G, train step",
+               (P2P_BATCH, 2): "Pix2Pix D on (input, target), train step",
+               (BATCH, 1): "predict chunk, both models",
+               (TRAIN_BATCH, 1): "CycleGAN G and D, train step",
+               (TRAIN_BATCH, 3): "3-channel G and CycleGAN D",
+               (TRAIN_BATCH, 6): "3-channel Pix2Pix D"}
+# the training shapes, and whether their step needs dx (D's input holds the fake)
+STEM_TRAIN_SHAPES = {(P2P_BATCH, 1): False, (P2P_BATCH, 2): True, (TRAIN_BATCH, 1): True}
 
 
 def phase(name: str) -> None:
@@ -111,7 +158,7 @@ def phase(name: str) -> None:
 
 
 def norm_sites(img_size: int, depth: int) -> list[tuple[int, int]]:
-    """(H = W, C) of each instance norm in the generator, in call order."""
+    """(H = W, C) of each norm in the generator, in call order."""
     down = [(img_size >> (i + 1), f) for i, f in enumerate(_DOWN_FILTERS[:depth])][1:]
     up_specs = _UP_SPECS[len(_UP_SPECS) - (depth - 1):]
     up = [(img_size >> (depth - 1 - i), f) for i, (f, _drop) in enumerate(up_specs)]
@@ -150,7 +197,7 @@ def device_ms(fn, calls: int = 20) -> float:
     """Device time of one call, free of Python launch overhead: ``calls``
     back-to-back calls captured in a CUDA graph, the replay timed with CUDA
     events (median of 5), divided by ``calls``. The input stays in L2 between
-    calls where it fits, as it does after the conv that writes it. Warm-up
+    calls where it fits, as it does after the op that writes it. Warm-up
     runs on a side stream, as capturing an autograd backward requires."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -167,24 +214,30 @@ def device_ms(fn, calls: int = 20) -> float:
     return ms
 
 
-def bound_ms(nbytes: int) -> float:
-    """The least time to move ``nbytes`` through device memory."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(nbytes: int, flops: float = 0.0, dtype=torch.bfloat16) -> tuple[float, str]:
+    """The least time the card could take: the larger of moving ``nbytes``
+    through device memory and doing ``flops`` at the peak for ``dtype``."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _library_norm(x, weight, bias):
+def _library_norm(x, weight, bias, eps=norm.IN_EPS):
     """One PyTorch call for the instance norm of an NCHW tensor:
     ``F.instance_norm``, or at H·W = 1, which it refuses, ``F.group_norm``
     with one channel a group (the same function)."""
     if x.shape[2] * x.shape[3] == 1:
-        return F.group_norm(x, x.shape[1], weight=weight, bias=bias, eps=norm.IN_EPS)
-    return F.instance_norm(x, weight=weight, bias=bias, eps=norm.IN_EPS)
+        return F.group_norm(x, x.shape[1], weight=weight, bias=bias, eps=eps)
+    return F.instance_norm(x, weight=weight, bias=bias, eps=eps)
 
 
-def library_fwd(x, scale, offset):
+def library_fwd(x, scale, offset, act=None, eps=norm.IN_EPS):
     """K1's function through the library, on the NCHW view of the NHWC
-    tensor (channels-last memory)."""
-    return _library_norm(x.permute(0, 3, 1, 2), scale.to(x.dtype), offset.to(x.dtype))
+    tensor (channels-last memory). With an epilogue it is two calls, the norm
+    and then ``F.leaky_relu`` or ``F.relu``: no one PyTorch call does both."""
+    y = _library_norm(x.permute(0, 3, 1, 2), scale.to(x.dtype), offset.to(x.dtype), eps)
+    if act == "leaky_relu":
+        return F.leaky_relu(y, norm.LEAKY_SLOPE)
+    return F.relu(y) if act == "relu" else y
 
 
 def library_bwd_ms(x, scale, offset, dy) -> float:
@@ -205,36 +258,93 @@ def library_bwd_ms(x, scale, offset, dy) -> float:
 
 
 def check_kernel(sites) -> dict:
-    """Phase 3. Returns per-shape times and the largest error."""
+    """Phase 3. Returns per-shape times and the largest error. Rows with
+    eps 1e-3 are per-image batch norm (Pix2Pix's predict)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = sorted(set(sites))
     times, worst = {}, 0.0
-    print(f"{'N,H,W,C':>18} {'dtype':>9} {'act':>10} {'max_abs_err':>12} {'tol(atol,rtol)':>16}"
-          f" {'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9}")
+    print(f"{'N,H,W,C':>18} {'dtype':>9} {'act':>10} {'eps':>6} {'max_abs_err':>12} "
+          f"{'tol(atol,rtol)':>16} {'kernel_us':>10} {'plain_us':>10} {'library_us':>10} "
+          f"{'bound_us':>9}")
     for hw, c in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            for act in norm.ACTS:
+            for act, eps in [(act, norm.IN_EPS) for act in norm.ACTS] + [(None, norm.BN_EPS)]:
                 x = (torch.randn(BATCH, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
                 scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
                 offset = 0.1 * torch.randn(c, device="cuda", generator=g)
-                got = kernels.instance_norm(x, scale, offset, act=act)
+                got = kernels.instance_norm(x, scale, offset, act=act, eps=eps)
                 torch.cuda.synchronize()
-                want = norm.instance_norm(x, scale, offset, act=act)
+                want = norm.instance_norm(x, scale, offset, act=act, eps=eps)
                 err = (got.float() - want.float()).abs().max().item()
                 atol, rtol = KERNEL_TOL[dtype]
                 torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
                 worst = max(worst, err)
-                k_ms = device_ms(lambda: kernels.instance_norm(x, scale, offset, act=act))
-                p_ms = device_ms(lambda: norm.instance_norm(x, scale, offset, act=act))
-                lib_ms = b_ms = float("nan")
-                if act is None:
-                    lib_ms = device_ms(lambda: library_fwd(x, scale, offset))
-                    b_ms = bound_ms(2 * x.numel() * x.element_size())
-                times[(hw, c, dtype, act)] = (k_ms, p_ms, lib_ms, b_ms)
+                k_ms = device_ms(lambda: kernels.instance_norm(x, scale, offset, act=act, eps=eps))
+                p_ms = device_ms(lambda: norm.instance_norm(x, scale, offset, act=act, eps=eps))
+                lib_ms = device_ms(lambda: library_fwd(x, scale, offset, act, eps))
+                b_ms, _ = bound_ms(2 * x.numel() * x.element_size())
+                times[(hw, c, dtype, act, eps)] = (k_ms, p_ms, lib_ms, b_ms)
                 print(f"{f'{BATCH},{hw},{hw},{c}':>18} {str(dtype)[6:]:>9} {str(act):>10} "
-                      f"{err:>12.3e} {f'{atol:g},{rtol:g}':>16} {k_ms * 1e3:>10.2f} "
+                      f"{eps:>6g} {err:>12.3e} {f'{atol:g},{rtol:g}':>16} {k_ms * 1e3:>10.2f} "
                       f"{p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f}", flush=True)
     return {"times": times, "max_abs_err": worst}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def check_stem() -> dict:
+    """Phase 4: S against its plain version at every stem shape of the
+    paths, forward in both dtypes and backward at the training shapes.
+    Returns per-shape (kernel, plain, library, bound) times, bound kinds and
+    the largest forward error."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    times, bound_by, worst = {}, {}, 0.0
+    print(f"{'N,H,W,C_in':>16} {'dtype':>9} {'max_abs_err':>12} {'tol(atol,rtol)':>20} "
+          f"{'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9} "
+          f"{'dx_rel':>9} {'dw_rel':>9}  path")
+    for (n, c_in), use in STEM_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.rand(n, IMG_SIZE, IMG_SIZE, c_in, device="cuda", generator=g) * 2 - 1).to(dtype)
+            w = (0.02 * torch.randn(64, c_in, 4, 4, device="cuda", generator=g)).to(
+                memory_format=torch.channels_last)   # as the models keep it
+            got = kernels.stem_conv(x, w, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            want = conv.stem_conv(x, w, compute_dtype=dtype)
+            atol, rtol = STEM_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            grads = ["", ""]
+            if (n, c_in) in STEM_TRAIN_SHAPES:
+                needs_dx = STEM_TRAIN_SHAPES[n, c_in]
+                dy = torch.randn(got.shape, device="cuda", generator=g).to(dtype)
+                res = []
+                for fn in (kernels.stem_conv, conv.stem_conv):
+                    xl = x.detach().requires_grad_(needs_dx)
+                    wl = w.detach().requires_grad_()
+                    leaves = (xl, wl) if needs_dx else (wl,)
+                    res.append(torch.autograd.grad(fn(xl, wl, compute_dtype=dtype), leaves, dy))
+                errs = [_rel(a, b) for a, b in zip(*res)]
+                if max(errs) > STEM_BWD_TOL[dtype]:
+                    raise AssertionError(f"stem backward {n},{c_in} {dtype}: relative errors {errs}")
+                grads = ([f"{errs[0]:.2e}", f"{errs[1]:.2e}"] if needs_dx
+                         else ["-", f"{errs[0]:.2e}"])
+            k_ms = device_ms(lambda: kernels.stem_conv(x, w, compute_dtype=dtype))
+            p_ms = device_ms(lambda: conv.stem_conv(x, w, compute_dtype=dtype))
+            xl, wl = x.permute(0, 3, 1, 2), w.to(dtype)
+            lib_ms = device_ms(lambda: F.leaky_relu(F.conv2d(xl, wl, stride=2, padding=1),
+                                                    norm.LEAKY_SLOPE))
+            nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
+            b_ms, by = bound_ms(nbytes, 2.0 * got.numel() * 16 * c_in, dtype)
+            times[(n, c_in, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
+            bound_by[(n, c_in, dtype)] = by
+            print(f"{f'{n},{IMG_SIZE},{IMG_SIZE},{c_in}':>16} {str(dtype)[6:]:>9} {err:>12.3e} "
+                  f"{f'{atol:g},{rtol:g}':>20} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} "
+                  f"{lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} {grads[0]:>9} {grads[1]:>9}  "
+                  f"{use} (bound by {by})", flush=True)
+    return {"times": times, "bound_by": bound_by, "max_abs_err": worst}
 
 
 def check_backward(shapes) -> dict:
@@ -269,7 +379,7 @@ def check_backward(shapes) -> dict:
             k_ms = device_ms(lambda: kernels.instance_norm_backward(x, scale, dy))
             p_ms = device_ms(lambda: norm.instance_norm_backward(x, scale, dy))
             lib_ms = library_bwd_ms(x, scale, offset, dy)
-            b_ms = bound_ms(3 * x.numel() * x.element_size())
+            b_ms, _ = bound_ms(3 * x.numel() * x.element_size())
             times[(hw, c, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
             print(f"{','.join(map(str, shape)):>18} {str(dtype)[6:]:>9} {errs[0]:>10.3e} "
                   f"{errs[1]:>10.3e} {errs[2]:>11.3e} {f'{atol:g},{rtol:g};{s_tol:.3g}':>20} "
@@ -278,14 +388,16 @@ def check_backward(shapes) -> dict:
     return {"times": times, "max_abs_err": worst}
 
 
-def offsets_from_seed(trainer: CycleGANTrainer) -> None:
-    """Seeded non-zero norm offsets: at init they are 0, and instance norm at
-    H·W = 1 returns the offset exactly, so the bottleneck would carry nothing."""
+def offsets_from_seed(trainer) -> None:
+    """Seeded non-zero norm offsets (instance norm) and betas (batch norm):
+    at init they are 0, and a norm over one value per channel (H·W = 1, or
+    per-image batch norm at the 1×1 bottleneck) returns exactly that, so the
+    bottleneck would carry nothing."""
     g = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
-        for name in NETWORKS:
-            for pname, p in trainer.nets[name].named_parameters():
-                if pname.endswith("offset"):
+        for net in trainer.nets.values():
+            for pname, p in net.named_parameters():
+                if pname.endswith(("offset", "beta")):
                     p.copy_(0.1 * torch.randn(p.shape, generator=g))
 
 
@@ -297,15 +409,22 @@ def compare(name: str, got: np.ndarray, want: np.ndarray, tol) -> None:
         raise AssertionError(f"{name}: kernel path disagrees with the plain path")
 
 
-def plain_norm(label: str):
-    """The blocks' instance norm as the plain version ('plain') or as is."""
-    return (mock.patch.object(blocks, "instance_norm", norm.instance_norm)
-            if label == "plain" else contextlib.nullcontext())
+def plain_path(label: str):
+    """The blocks' kernels (S and K1) as their plain versions ('plain'), or
+    as they are."""
+    if label != "plain":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(blocks, "instance_norm", norm.instance_norm))
+    stack.enter_context(mock.patch.object(blocks, "stem_conv", conv.stem_conv))
+    return stack
 
 
 # kernel groups of the profile, by substring of the kernel name; first match wins
-_GROUPS = (("instance norm forward (CUDA kernel K1)", ("instance_norm_fwd_kernel",)),
+_GROUPS = (("stem conv (CUDA kernel S)", ("stem_conv_kernel",)),
+           ("instance norm forward (CUDA kernel K1)", ("instance_norm_fwd_kernel",)),
            ("instance norm backward (CUDA kernel K2)", ("instance_norm_bwd_kernel",)),
+           ("batch norm (PyTorch's kernels)", ("batch_norm", "bn_fw", "bn_bw", "welford")),
            ("Adam (multi-tensor)", ("multi_tensor_apply",)),
            ("dtype casts and copies", ("copy_kernel",)),
            ("cat of skips", ("CatArrayBatchedCopy",)),
@@ -349,64 +468,70 @@ def profile_device(fn, calls: int) -> float:
     return sum(groups.values())
 
 
-def run_slice(tmp: str) -> dict:
-    """Phases 4 and 5. Returns the kernel launch counts of the main-path run."""
-    images, out, weights = (os.path.join(tmp, d) for d in ("x", "out", "run"))
-    argv = ["--input-images", images, "--output", out, "--predict", "--weights", weights,
-            "--img-size", str(IMG_SIZE), "--channels", "1", "--dtype", "bf16"]
-    cfg = parse_cyclegan(argv)
-    depth = generator_depth(cfg.img_size)
-    seeded = CycleGANTrainer(cfg)
-    offsets_from_seed(seeded)
-    n_params = sum(p.numel() for p in seeded.gen_g.parameters())
-    print(f"generator: depth {depth}, {n_params / 1e6:.2f} M parameters, device {seeded.device}")
-    CheckpointManager(os.path.join(weights, "training_checkpoints"), max_to_keep=3).save(1, seeded.state())
+def timed_paths(fn, rounds: int, reps: int) -> dict:
+    """Median eager times of ``fn`` per path, kernel and plain in turns."""
+    runs = {"kernel": [], "plain": []}
+    for order in (("kernel", "plain"), ("plain", "kernel")) * rounds:
+        for label in order:
+            with plain_path(label):
+                runs[label].append(median_ms(fn, reps=reps))
+    return runs
 
-    trainer = CycleGANTrainer(cfg)       # as --predict does: build, then restore
+
+def profile_paths(fn, calls: int, runs: dict, what: str) -> None:
+    for label in ("kernel", "plain"):
+        print(f"{label} path, device time per {what}:")
+        with plain_path(label):
+            busy_us = profile_device(fn, calls)
+        eager_ms = float(np.median(runs[label]))
+        print(f"  {busy_us:10.2f} us  sum of kernel time; eager {what} median {eager_ms:.3f} ms, "
+              f"so the card is idle {1 - busy_us / 1e3 / eager_ms:.1%} of it")
+
+
+def _restore_checked(trainer, weights: str, seeded) -> None:
+    """Restore as ``--predict`` does, and hold the weights to the saved ones."""
     trainer.load_state(CheckpointManager(latest_checkpoint_dir(weights)).restore(
-        map_location=trainer.device))
-    for a, b in zip(seeded.gen_g.state_dict().values(), trainer.gen_g.state_dict().values()):
+        map_location="cpu"))
+    for a, b in zip(seeded.sampler.state_dict().values(), trainer.sampler.state_dict().values()):
         if not torch.equal(a, b):
             raise AssertionError("checkpoint round trip changed the weights")
-    del seeded
 
+
+def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
+    """``generate_batched`` on the kernel path (with its launches counted,
+    the norm sites' shapes recorded), against the plain path in bf16 and in
+    fp32, then the predict rate. Returns the launches and the output."""
     seen = set()
-    for m in trainer.gen_g.modules():
-        if isinstance(m, blocks.InstanceNorm):
+    for m in trainer.sampler.modules():
+        if isinstance(m, norm_type):
             m.register_forward_hook(lambda mod, inp, o: seen.add(tuple(inp[0].shape[1:])))
-    u8 = np.random.default_rng(SEED).integers(0, 256, (N_IMAGES, IMG_SIZE, IMG_SIZE, 1),
-                                              dtype=np.uint8)
-    passes = -(-N_IMAGES // BATCH)
-
+    passes = -(-u8.shape[0] // BATCH)
     kernels.reset_launches()
     pred = trainer.generate_batched(u8, chunk=BATCH)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"launches on the predict path: {launches} over {passes} generator passes")
-    if launches != {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0}:
-        raise AssertionError(f"expected {14 * passes} K1 launches and no K2, got {launches}")
-    want_sites = {(hw, hw, c) for hw, c in norm_sites(IMG_SIZE, depth)}
+    want = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes}
+    print(f"launches on the predict path: {launches} over {passes} generator passes, "
+          f"expected {want}")
+    if launches != want:
+        raise AssertionError("launch counts differ from the generator's structure")
+    want_sites = {(hw, hw, c) for hw, c in norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))}
     if seen != want_sites:
-        raise AssertionError(f"instance-norm shapes {sorted(seen)} != compared {sorted(want_sites)}")
-    if pred.shape != (N_IMAGES, IMG_SIZE, IMG_SIZE, 1) or pred.dtype != np.float32:
+        raise AssertionError(f"norm shapes {sorted(seen)} != compared {sorted(want_sites)}")
+    if pred.shape != (u8.shape[0], IMG_SIZE, IMG_SIZE, 1) or pred.dtype != np.float32:
         raise AssertionError(f"output {pred.shape} {pred.dtype}")
     if not (np.isfinite(pred).all() and np.abs(pred).max() <= 1.0):
         raise AssertionError("output not finite or outside [-1, 1]")
     print(f"output {pred.shape} in [{pred.min():.4f}, {pred.max():.4f}], std {pred.std():.4f}")
-
-    with plain_norm("plain"):
+    with plain_path("plain"):
         plain = trainer.generate_batched(u8, chunk=BATCH)
-    compare("bf16 slice, kernel vs plain instance norm", pred, plain, SLICE_TOL["bf16"])
-
+    compare("bf16 slice, kernel vs plain path", pred, plain, SLICE_TOL["bf16"])
     # the same weights in fp32 (TF32 off): kernel and plain paths agree closely
-    trainer32 = CycleGANTrainer(parse_cyclegan(argv[:-1] + ["fp32"]))
     trainer32.load_state(trainer.state())
     k32 = trainer32.generate_batched(u8[:4], chunk=4)
-    with plain_norm("plain"):
+    with plain_path("plain"):
         p32 = trainer32.generate_batched(u8[:4], chunk=4)
-    compare("fp32 slice, kernel vs plain instance norm", k32, p32, SLICE_TOL["fp32"])
-    del trainer32
-
+    compare("fp32 slice, kernel vs plain path", k32, p32, SLICE_TOL["fp32"])
     # end-to-end predict rate: host uint8 in, host fp32 out (7 runs, median)
     runs = []
     for _ in range(7):
@@ -414,6 +539,33 @@ def run_slice(tmp: str) -> dict:
         trainer.generate_batched(u8, chunk=BATCH)
         runs.append(time.perf_counter() - t0)
     e2e = float(np.median(runs))
+    print(f"predict {u8.shape[0]} images at {IMG_SIZE}² bf16: {e2e * 1e3:.2f} ms "
+          f"(runs {[round(r * 1e3, 2) for r in runs]}), {u8.shape[0] / e2e:.2f} images/s, "
+          f"{e2e / passes * 1e3:.2f} ms per batch of {BATCH}")
+    return launches, pred
+
+
+def run_slice(tmp: str) -> dict:
+    """Phase 5. Returns the kernel launch counts of the main-path run."""
+    images, out, weights = (os.path.join(tmp, d) for d in ("x", "out", "run"))
+    argv = ["--input-images", images, "--output", out, "--predict", "--weights", weights,
+            "--img-size", str(IMG_SIZE), "--channels", "1", "--dtype", "bf16"]
+    cfg = parse_cyclegan(argv)
+    seeded = CycleGANTrainer(cfg)
+    offsets_from_seed(seeded)
+    n_params = sum(p.numel() for p in seeded.gen_g.parameters())
+    print(f"generator: depth {generator_depth(cfg.img_size)}, {n_params / 1e6:.2f} M parameters, "
+          f"device {seeded.device}")
+    CheckpointManager(os.path.join(weights, "training_checkpoints"), max_to_keep=3).save(
+        1, seeded.state())
+    trainer = CycleGANTrainer(cfg)       # as --predict does: build, then restore
+    _restore_checked(trainer, weights, seeded)
+    del seeded
+
+    u8 = np.random.default_rng(SEED).integers(0, 256, (N_IMAGES, IMG_SIZE, IMG_SIZE, 1),
+                                              dtype=np.uint8)
+    launches, _ = check_predict(trainer, CycleGANTrainer(parse_cyclegan(argv[:-1] + ["fp32"])),
+                                u8, blocks.InstanceNorm)
     # one generator pass on a resident batch of 16, kernel and plain in turns
     x = normalize_batch(torch.from_numpy(u8[:BATCH]).to("cuda"), torch.bfloat16)
     gen = torch.Generator(device="cuda")
@@ -422,58 +574,39 @@ def run_slice(tmp: str) -> dict:
         with torch.no_grad():
             trainer.gen_g(x, generator=gen.manual_seed(0), compute_dtype=torch.bfloat16)
 
-    fwd_runs = {"kernel": [], "plain": []}
-    for order in (("kernel", "plain"), ("plain", "kernel")) * 4:
-        for label in order:
-            with plain_norm(label):
-                fwd_runs[label].append(median_ms(fwd))
-    print(f"predict {N_IMAGES} images at {IMG_SIZE}² bf16: {e2e * 1e3:.2f} ms "
-          f"(runs {[round(r * 1e3, 2) for r in runs]}), {N_IMAGES / e2e:.2f} images/s, "
-          f"{e2e / passes * 1e3:.2f} ms per batch of {BATCH}")
+    fwd_runs = timed_paths(fwd, rounds=4, reps=10)
     for label, runs_ms in fwd_runs.items():
-        print(f"generator forward, batch {BATCH} resident on the card, {label} instance norm: "
+        print(f"generator forward, batch {BATCH} resident on the card, {label} path: "
               f"median {np.median(runs_ms):.3f} ms (rounds {[round(r, 3) for r in runs_ms]})")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase(f"5. profile: generator forward, batch {BATCH} resident on the card")
-    for label in ("kernel", "plain"):
-        print(f"{label} instance norm, device time per forward:")
-        with plain_norm(label):
-            busy_us = profile_device(fwd, 5)
-        eager_ms = float(np.median(fwd_runs[label]))
-        print(f"  {busy_us:10.2f} us  sum of kernel time; eager forward median {eager_ms:.3f} ms, "
-              f"so the card is idle {1 - busy_us / 1e3 / eager_ms:.1%} of it")
+    phase(f"5b. profile: CycleGAN generator forward, batch {BATCH} resident on the card")
+    profile_paths(fwd, 5, fwd_runs, "forward")
     return launches
 
 
-def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).norm() / b.double().norm())
-
-
-def check_step_paths(bf16: CycleGANTrainer, fp32: CycleGANTrainer, x, y) -> None:
+def check_step_paths(bf16, fp32, x, y, draws) -> None:
     """One step's losses and per-network gradients from the same state,
-    batch and dropout draws, through the kernels and through the plain
-    instance norm, in fp32 (TF32 off) and bf16; nothing is updated. fp32:
+    batch and dropout draws (``draws(trainer)``), through the kernels and on
+    the plain path, in fp32 (TF32 off) and bf16; nothing is updated. fp32:
     kernel path against plain path. bf16: each path against the fp32 plain
     path, and the kernel path no further from it than the plain path is,
     within a factor (bf16 rounding in the convs is common to both)."""
-    def draws():
-        return [bf16._draws(SEED, 0, 0, 0, app) for app in range(6)]
-
     runs = {}
     for label, trainer, xs, ys in (("bf16", bf16, x, y), ("fp32", fp32, x.float(), y.float())):
         for path in ("kernel", "plain"):
-            with plain_norm(path):
-                grads, losses = trainer.gradients(xs, ys, draws())
+            with plain_path(path):
+                grads, losses = trainer.gradients(xs, ys, draws(trainer))
             runs[label, path] = ({k: torch.cat([g.flatten().float() for g in v])
                                   for k, v in grads.items()}, losses)
-    ref_grads, ref_losses = runs["fp32", "plain"]
+    ref_losses = runs["fp32", "plain"][1]
+    names = list(bf16.nets)
 
     def errs(key, against=("fp32", "plain")):
         grads, losses = runs[key]
         want_grads, want_losses = runs[against]
         loss_err = ((losses - want_losses).abs() / want_losses.abs()).max().item()
-        return loss_err, {k: _rel(grads[k], want_grads[k]) for k in NETWORKS}
+        return loss_err, {k: _rel(grads[k], want_grads[k]) for k in names}
 
     fmt = lambda d: {k: f"{v:.3e}" for k, v in d.items()}
     l32, g32 = errs(("fp32", "kernel"))
@@ -490,9 +623,70 @@ def check_step_paths(bf16: CycleGANTrainer, fp32: CycleGANTrainer, x, y) -> None
     ok32 = l32 <= STEP_TOL["fp32"][0] and max(g32.values()) <= STEP_TOL["fp32"][1]
     ok16 = (lkp <= STEP_TOL["bf16"][0] and max(gkp.values()) <= STEP_TOL["bf16"][1]
             and lk <= BF16_FACTOR * lp + BF16_SLACK
-            and all(gk[k] <= BF16_FACTOR * gp[k] + BF16_SLACK for k in NETWORKS))
+            and all(gk[k] <= BF16_FACTOR * gp[k] + BF16_SLACK for k in names))
     if not (ok32 and ok16):
         raise AssertionError("train step: kernel path disagrees with the plain path")
+
+
+def check_fit(trainer, make_trainer, fit, want: dict, steps: int) -> tuple[dict, float]:
+    """``fit`` (one epoch) with its launches counted against ``want``; finite
+    losses, every network changed, and a checkpoint round trip of every
+    network and Adam. Returns the launches and the peak device memory."""
+    before = {k: [p.detach().clone() for p in v] for k, v in trainer.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train_cost, val_cost, mgr = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fit: {fit_s:.2f} s with the first step's set-up; launches {launches}, expected "
+          f"{want}; peak device memory {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError("launch counts differ from the step's derivation")
+    for k in train_cost:
+        print(f"  {k}: train {train_cost[k][0]:.4f}, val {val_cost[k][0]:.4f}")
+    if not all(math.isfinite(v[0]) for d in (train_cost, val_cost) for v in d.values()):
+        raise AssertionError("a loss is not finite")
+    unchanged = [k for k in trainer.nets
+                 if all(torch.equal(a, b) for a, b in zip(before[k], trainer.params[k]))]
+    if unchanged:
+        raise AssertionError(f"fit left {unchanged} unchanged")
+    del before
+
+    restored = make_trainer()
+    # on the CPU: the Adams keep their step counts there, and move the moments to the card
+    restored.load_state(mgr.restore(map_location="cpu"))
+    for name in trainer.nets:
+        for (ka, a), (kb, b) in zip(trainer.nets[name].state_dict().items(),
+                                    restored.nets[name].state_dict().items()):
+            if ka != kb or not torch.equal(a, b):
+                raise AssertionError(f"checkpoint round trip changed {name}.{ka}")
+        sa, sb = trainer.opts[name].state_dict(), restored.opts[name].state_dict()
+        if sa["param_groups"] != sb["param_groups"] or sa["state"].keys() != sb["state"].keys():
+            raise AssertionError(f"checkpoint round trip changed {name}'s Adam")
+        for i, st in sa["state"].items():
+            if not all(torch.equal(v.cpu(), sb["state"][i][k].cpu()) for k, v in st.items()):
+                raise AssertionError(f"checkpoint round trip changed {name}'s Adam state {i}")
+    adam_steps = int(sa["state"][0]["step"])
+    print(f"checkpoint {mgr.all_epochs()}: {len(trainer.nets)} networks and Adams "
+          f"(step {adam_steps}) restored equal")
+    if adam_steps != steps:
+        raise AssertionError(f"Adam took {adam_steps} steps, expected {steps}")
+    return launches, peak
+
+
+def step_numbers(step, batch: int, peak: float, what: str) -> None:
+    """The median step time per path in alternating rounds, images/s, and a
+    profile of two steps per path."""
+    runs = timed_paths(step, rounds=3, reps=5)
+    for label, runs_ms in runs.items():
+        med = float(np.median(runs_ms))
+        print(f"train step, {label} path: median {med:.3f} ms "
+              f"(rounds {[round(r, 3) for r in runs_ms]}), {batch / med * 1e3:.2f} {what}/s")
+    print(f"peak device memory of fit {peak:.2f} GiB")
+    profile_paths(step, 2, runs, "train step")
 
 
 def run_training(tmp: str) -> dict:
@@ -511,7 +705,6 @@ def run_training(tmp: str) -> dict:
     train_y = rng.integers(0, 256, (N_TRAIN_Y, pad, pad, 1), dtype=np.uint8)
     val_x, val_y, test = (rng.integers(0, 256, (n, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
                           for n in (N_VAL, N_VAL, 1))
-    before = {k: [p.detach().clone() for p in v] for k, v in trainer.params.items()}
     mgr = CheckpointManager(os.path.join(tmp, "training_checkpoints"), max_to_keep=3)
 
     bwd_calls = [0]
@@ -523,57 +716,26 @@ def run_training(tmp: str) -> dict:
 
     train_steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     val_steps = -(-N_VAL // TRAIN_BATCH)
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    with mock.patch.object(kernels.InstanceNormFunction, "backward", staticmethod(counted_backward)):
-        t0 = time.perf_counter()
-        train_cost, val_cost = trainer.fit(train_x, train_y, val_x, val_y, test, tmp,
-                                           checkpoint_manager=mgr)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     k1, k2 = train_step_launches(len(norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))),
                                  len(DISC_NORM_SITES))
     want = {"instance_norm_fwd": (train_steps + val_steps) * k1,
-            "instance_norm_bwd": train_steps * k2}
-    print(f"fit, 1 epoch of {train_steps} train steps (the last a zip tail of "
+            "instance_norm_bwd": train_steps * k2,
+            "stem_conv": (train_steps + val_steps) * CYCLEGAN_STEMS_PER_STEP}
+    print(f"1 epoch: {train_steps} train steps (the last a zip tail of "
           f"{N_TRAIN_X - (train_steps - 1) * TRAIN_BATCH} X and {TRAIN_BATCH} Y rows) and "
-          f"{val_steps} val steps: {fit_s:.2f} s with the first step's set-up; launches on "
-          f"the training path {launches}, expected {want} ({k1} K1 and {k2} K2 per train step, "
-          f"{k1} K1 per val step); InstanceNormFunction.backward calls {bwd_calls[0]}; "
-          f"peak device memory {peak:.2f} GiB")
-    if launches != want or bwd_calls[0] != want["instance_norm_bwd"]:
-        raise AssertionError("launch counts differ from the step's derivation")
-    for k in train_cost:
-        print(f"  {k}: train {train_cost[k][0]:.4f}, val {val_cost[k][0]:.4f}")
-    if not all(math.isfinite(v[0]) for d in (train_cost, val_cost) for v in d.values()):
-        raise AssertionError("a loss is not finite")
-    unchanged = [k for k in NETWORKS
-                 if all(torch.equal(a, b) for a, b in zip(before[k], trainer.params[k]))]
-    if unchanged:
-        raise AssertionError(f"fit left {unchanged} unchanged")
-    del before
+          f"{val_steps} val steps; per train step {k1} K1, {k2} K2 and "
+          f"{CYCLEGAN_STEMS_PER_STEP} S, per val step {k1} K1 and {CYCLEGAN_STEMS_PER_STEP} S")
 
-    restored = CycleGANTrainer(cfg)
-    # on the CPU: the Adams keep their step counts there, and move the moments to the card
-    restored.load_state(mgr.restore(map_location="cpu"))
-    for name in NETWORKS:
-        for (ka, a), (kb, b) in zip(trainer.nets[name].state_dict().items(),
-                                    restored.nets[name].state_dict().items()):
-            if ka != kb or not torch.equal(a, b):
-                raise AssertionError(f"checkpoint round trip changed {name}.{ka}")
-        sa, sb = trainer.opts[name].state_dict(), restored.opts[name].state_dict()
-        if sa["param_groups"] != sb["param_groups"] or sa["state"].keys() != sb["state"].keys():
-            raise AssertionError(f"checkpoint round trip changed {name}'s Adam")
-        for i, st in sa["state"].items():
-            if not all(torch.equal(v.cpu(), sb["state"][i][k].cpu()) for k, v in st.items()):
-                raise AssertionError(f"checkpoint round trip changed {name}'s Adam state {i}")
-    steps = int(sa["state"][0]["step"])
-    print(f"checkpoint {mgr.all_epochs()}: 4 networks and 4 Adams (step {steps}) restored equal")
-    if steps != train_steps:
-        raise AssertionError(f"Adam took {steps} steps, expected {train_steps}")
-    del restored
+    def fit():
+        with mock.patch.object(kernels.InstanceNormFunction, "backward",
+                               staticmethod(counted_backward)):
+            return (*trainer.fit(train_x, train_y, val_x, val_y, test, tmp,
+                                 checkpoint_manager=mgr), mgr)
+
+    launches, peak = check_fit(trainer, lambda: CycleGANTrainer(cfg), fit, want, train_steps)
+    print(f"InstanceNormFunction.backward calls {bwd_calls[0]}")
+    if bwd_calls[0] != want["instance_norm_bwd"]:
+        raise AssertionError("K2 calls differ from the norm backwards")
 
     # one step from the fitted state, kernel path vs plain path
     u8x = torch.from_numpy(train_x[:TRAIN_BATCH]).to("cuda")
@@ -583,32 +745,77 @@ def run_training(tmp: str) -> dict:
     y = single_jitter_batch(u8y, gy, img_size=IMG_SIZE, dtype=torch.bfloat16)
     trainer32 = CycleGANTrainer(parse_cyclegan(argv[:-1] + ["fp32"]))
     trainer32.load_state(trainer.state())
-    check_step_paths(trainer, trainer32, x, y)
+    check_step_paths(trainer, trainer32, x, y,
+                     lambda t: [t._draws(SEED, 0, 0, 0, app) for app in range(6)])
     del trainer32
 
-    phase(f"8. training numbers: train step at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}, "
+    phase(f"8. CycleGAN training numbers: train step at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}, "
           "uint8 batch resident on the card")
+    # what fit runs per step: draws, jitter, gradients, four Adam updates
+    step_numbers(lambda: trainer._step(u8x, u8y, 0, 0, 0), TRAIN_BATCH, peak, "image-pairs")
+    return launches
 
-    def step():   # what fit runs per step: draws, jitter, gradients, four Adam updates
-        trainer._step(u8x, u8y, 0, 0, 0)
 
-    step_runs = {"kernel": [], "plain": []}
-    for order in (("kernel", "plain"), ("plain", "kernel")) * 3:
-        for label in order:
-            with plain_norm(label):
-                step_runs[label].append(median_ms(step, reps=5))
-    for label, runs_ms in step_runs.items():
-        med = float(np.median(runs_ms))
-        print(f"train step, {label} instance norm: median {med:.3f} ms "
-              f"(rounds {[round(r, 3) for r in runs_ms]}), {TRAIN_BATCH / med * 1e3:.2f} image-pairs/s")
-    print(f"peak device memory of fit {peak:.2f} GiB")
-    for label in ("kernel", "plain"):
-        print(f"{label} instance norm, device time per train step:")
-        with plain_norm(label):
-            busy_us = profile_device(step, 2)
-        eager_ms = float(np.median(step_runs[label]))
-        print(f"  {busy_us:10.2f} us  sum of kernel time; eager step median {eager_ms:.3f} ms, "
-              f"so the card is idle {1 - busy_us / 1e3 / eager_ms:.1%} of it")
+def run_pix2pix_predict(tmp: str) -> dict:
+    """Phase 9. Returns the kernel launch counts of the main-path run."""
+    data, out, weights = (os.path.join(tmp, d) for d in ("data", "out", "run"))
+    argv = ["--data", data, "--output", out, "--predict", "--weights", weights,
+            "--img-size", str(IMG_SIZE), "--channels", "1", "--dtype", "bf16"]
+    cfg = parse_pix2pix(argv)
+    seeded = Pix2PixTrainer(cfg)
+    offsets_from_seed(seeded)
+    print(f"generator: depth {generator_depth(cfg.img_size)}, batch norm, "
+          f"{sum(p.numel() for p in seeded.gen.parameters()) / 1e6:.2f} M parameters; "
+          f"discriminator {sum(p.numel() for p in seeded.disc.parameters()) / 1e6:.2f} M")
+    CheckpointManager(os.path.join(weights, "training_checkpoints"), max_to_keep=1).save(
+        1, seeded.state())
+    trainer = Pix2PixTrainer(cfg)
+    _restore_checked(trainer, weights, seeded)
+    del seeded
+    u8 = np.random.default_rng(SEED + 7).integers(0, 256, (N_IMAGES, IMG_SIZE, IMG_SIZE, 1),
+                                                  dtype=np.uint8)
+    launches, _ = check_predict(trainer, Pix2PixTrainer(parse_pix2pix(argv[:-1] + ["fp32"])),
+                                u8, blocks.BatchNorm)
+    return launches
+
+
+def run_pix2pix_training(tmp: str) -> dict:
+    """Phases 10 and 11. Returns the kernel launch counts of the main-path run."""
+    argv = ["--data", tmp, "--output", tmp, "--train", "--epochs", "1",
+            "--img-size", str(IMG_SIZE), "--batch-size", str(P2P_BATCH), "--dtype", "bf16"]
+    cfg = parse_pix2pix(argv)
+    trainer = Pix2PixTrainer(cfg)
+    offsets_from_seed(trainer)
+    rng = np.random.default_rng(SEED + 8)
+    pad = IMG_SIZE + 30
+    train = rng.integers(0, 256, (N_P2P_TRAIN, 2, pad, pad, 1), dtype=np.uint8)
+    val = rng.integers(0, 256, (N_P2P_VAL, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
+    test = rng.integers(0, 256, (1, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
+    mgr = CheckpointManager(os.path.join(tmp, "training_checkpoints"), max_to_keep=1)
+    train_steps, val_steps = -(-N_P2P_TRAIN // P2P_BATCH), -(-N_P2P_VAL // P2P_BATCH)
+    want = {"instance_norm_fwd": 0, "instance_norm_bwd": 0,
+            "stem_conv": PIX2PIX_STEMS_PER_STEP * (train_steps + val_steps)}
+    print(f"1 epoch: {train_steps} train steps (the last of {N_P2P_TRAIN % P2P_BATCH} rows) and "
+          f"{val_steps} val steps (the last of {N_P2P_VAL % P2P_BATCH} rows), "
+          f"{PIX2PIX_STEMS_PER_STEP} S per step, no K1 or K2 (batch statistics)")
+
+    def fit():
+        return (*trainer.fit(train, val, test, tmp, checkpoint_manager=mgr), mgr)
+
+    launches, peak = check_fit(trainer, lambda: Pix2PixTrainer(cfg), fit, want, train_steps)
+
+    u8 = torch.from_numpy(train[:P2P_BATCH]).to("cuda")
+    x, y = paired_jitter_batch(u8, torch.Generator(device="cuda").manual_seed(SEED + 4),
+                               img_size=IMG_SIZE, dtype=torch.bfloat16)
+    trainer32 = Pix2PixTrainer(parse_pix2pix(argv[:-1] + ["fp32"]))
+    trainer32.load_state(trainer.state())
+    check_step_paths(trainer, trainer32, x, y, lambda t: t._draws(SEED, 0, 0, 0, 0))
+    del trainer32
+
+    phase(f"11. Pix2Pix training numbers: train step at {IMG_SIZE}², bf16, batch {P2P_BATCH}, "
+          "uint8 batch resident on the card")
+    # what fit runs per step: draws, paired jitter, gradients, two Adam updates
+    step_numbers(lambda: trainer._step(u8, 0, 0, 0), P2P_BATCH, peak, "image-pairs")
     return launches
 
 
@@ -632,20 +839,45 @@ def main() -> int:
     with open(path + ".log") as f:
         print("".join(line for line in f if "registers" in line or "spill" in line), end="")
 
-    phase("3. instance-norm forward kernel (K1) vs plain, predict shapes")
+    phase("3. instance-norm forward kernel (K1) vs plain, generator shapes, batch 16")
     sites = norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))
     if len(sites) != 14:
-        raise AssertionError(f"expected 14 instance-norm sites, got {sites}")
+        raise AssertionError(f"expected 14 norm sites, got {sites}")
     k = check_kernel(sites)
-    k1_pass = [sum(k["times"][(hw, c, torch.bfloat16, None)][i] for hw, c in sites)
+    k1_pass = [sum(k["times"][(hw, c, torch.bfloat16, None, norm.IN_EPS)][i] for hw, c in sites)
                for i in range(4)]
     print(f"14 sites of one bf16 generator pass at batch {BATCH}: kernel {k1_pass[0] * 1e3:.2f} us, "
           f"plain {k1_pass[1] * 1e3:.2f} us, F.instance_norm {k1_pass[2] * 1e3:.2f} us, "
           f"bound {k1_pass[3] * 1e3:.2f} us")
+    for act in ("leaky_relu", "relu"):
+        t = k["times"][(128, 64, torch.bfloat16, act, norm.IN_EPS)]
+        print(f"K3 ({act} epilogue) at 128²×64, bf16, batch {BATCH}: kernel {t[0] * 1e3:.2f} us, "
+              f"plain {t[1] * 1e3:.2f} us, library (norm, then activation: two calls) "
+              f"{t[2] * 1e3:.2f} us, bound {t[3] * 1e3:.2f} us")
 
-    phase("4. CycleGAN predict slice")
+    phase(f"4. stem kernel (S) vs plain, every stem shape at {IMG_SIZE}²")
+    s = check_stem()
+    p2p_stems = [(P2P_BATCH, 1), (P2P_BATCH, 2), (P2P_BATCH, 2)]
+    s_step = [sum(s["times"][(n, c, torch.bfloat16)][i] for n, c in p2p_stems) for i in range(4)]
+    # what bounds the sum: the kind that bounds most of it
+    by_kind = {}
+    for n, c in p2p_stems:
+        kind_nc = s["bound_by"][(n, c, torch.bfloat16)]
+        by_kind[kind_nc] = by_kind.get(kind_nc, 0.0) + s["times"][(n, c, torch.bfloat16)][3]
+    s_by = max(by_kind, key=by_kind.get)
+    print(f"the 3 stems of one bf16 Pix2Pix train step at batch {P2P_BATCH}: kernel "
+          f"{s_step[0] * 1e3:.2f} us, plain {s_step[1] * 1e3:.2f} us, F.conv2d + F.leaky_relu "
+          f"{s_step[2] * 1e3:.2f} us, bound {s_step[3] * 1e3:.2f} us (by {s_by})")
+
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    phase("5. CycleGAN predict slice")
     with tempfile.TemporaryDirectory() as tmp:
-        predict_launches = run_slice(tmp)
+        add(run_slice(tmp))
 
     phase(f"6. instance-norm backward kernel (K2) vs plain, training shapes, batch {TRAIN_BATCH}")
     step_sites = sites + list(DISC_NORM_SITES)
@@ -658,15 +890,26 @@ def main() -> int:
 
     phase(f"7. CycleGAN training slice: fit at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}")
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = run_training(tmp)
+        add(run_training(tmp))
 
+    phase(f"9. Pix2Pix predict slice: {IMG_SIZE}², depth 8, bf16, per-image batch norm")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_pix2pix_predict(tmp))
+
+    phase(f"10. Pix2Pix training slice: fit at {IMG_SIZE}², bf16, batch {P2P_BATCH}")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_pix2pix_training(tmp))
+
+    print(f"\nlaunches on the four main paths: {launches}")
+    if not all(launches[name] > 0 for name in SOURCES):
+        raise AssertionError("a kernel of the paths was never launched")
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-         "launches": predict_launches[name] + train_launches[name], "max_abs_err": err,
-         "ms": t[0], "plain_ms": t[1], "bound_ms": t[3], "bound_by": "bytes",
-         "library_ms": t[2]}
-        for name, err, t in (("instance_norm_fwd", k["max_abs_err"], k1_pass),
-                             ("instance_norm_bwd", b["max_abs_err"], k2_pass))]}
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches[name], "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+         "bound_ms": t[3], "bound_by": by, "library_ms": t[2]}
+        for name, err, t, by in (("instance_norm_fwd", k["max_abs_err"], k1_pass, "bytes"),
+                                 ("instance_norm_bwd", b["max_abs_err"], k2_pass, "bytes"),
+                                 ("stem_conv", s["max_abs_err"], s_step, s_by))]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

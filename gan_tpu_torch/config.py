@@ -1,10 +1,10 @@
-"""The CycleGAN CLI's flags and config.json (counterpart of gan_tpu/config.py).
+"""The CLIs' flags and config.json (counterpart of gan_tpu/config.py).
 
 Stdlib only, so the port parses its flags where jax is absent. Flag names,
 defaults, choices, asserts and the ``config.json`` keys are gan_tpu's;
-tests/test_torch_predict.py holds the two parsers against each other. The
-Pix2Pix flags join with the Pix2Pix path. ``--dtype`` maps to a torch dtype
-through :func:`gan_tpu_torch.device.torch_dtype`.
+tests/test_torch_predict.py and tests/test_torch_pix2pix.py hold the parsers
+against gan_tpu's. ``--dtype`` maps to a torch dtype through
+:func:`gan_tpu_torch.device.torch_dtype`.
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ def _env_true(name: str) -> bool:
 
 
 @dataclasses.dataclass
-class CycleGANConfig:
-    """CycleGAN flags; field order is gan_tpu's (shared flags first)."""
+class BaseConfig:
+    """The flags both CLIs share; field order is gan_tpu's."""
 
     output: str = ""
     img_size: int = 256
@@ -53,10 +53,6 @@ class CycleGANConfig:
     remat: str = "auto"
     host_cache: str = "auto"
     checkpoint_every: int = 0
-    # CycleGAN's own
-    input_images: str = ""
-    target_images: Optional[str] = None
-    lam: int = 10
 
     def validate(self) -> None:
         """gan_tpu's asserts. GAN_TPU_ALLOW_ANY_SIZE=1 allows any power-of-two
@@ -87,13 +83,41 @@ class CycleGANConfig:
             f.write(self.to_json())
 
 
-def parse_cyclegan(argv=None) -> CycleGANConfig:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    p = argparse.ArgumentParser("cycle_gan")
-    p.add_argument("--input-images", type=str, required=True, help="path to input images")
-    p.add_argument("--target-images", type=str, required="--train" in argv,
-                   help="path to target images")
-    p.add_argument("--lambda", dest="lam", type=int, default=10, help="lambda parameter value")
+@dataclasses.dataclass
+class Pix2PixConfig(BaseConfig):
+    """Pix2Pix flags."""
+
+    data: str = ""
+    generator_loss: str = "l1"       # l1 | ssim (gan_tpu's corrected SSIM loss)
+    input_img_orient: str = "left"
+    lam: int = 100
+
+    def validate(self) -> None:
+        super().validate()
+        assert self.generator_loss in ("l1", "ssim")
+        assert self.input_img_orient in ("left", "right")
+
+
+@dataclasses.dataclass
+class CycleGANConfig(BaseConfig):
+    """CycleGAN flags."""
+
+    input_images: str = ""
+    target_images: Optional[str] = None
+    lam: int = 10
+
+
+def refuse_unported(cfg: BaseConfig) -> None:
+    """Exit when --train asks for a path that is not ported yet."""
+    unported = [flag for flag, on in (("--resume", cfg.resume),
+                                      ("--checkpoint-every", cfg.checkpoint_every),
+                                      ("--num-devices > 1", cfg.num_devices > 1)) if on]
+    if cfg.train and unported:
+        raise SystemExit(f"gan_tpu_torch: {', '.join(unported)} with --train is not "
+                         "ported yet; train with gan_tpu's CLI or drop the flag")
+
+
+def _add_common(p: argparse.ArgumentParser, argv) -> None:
     p.add_argument("--output", type=str, required=True, help="path to output results")
     p.add_argument("--img-size", type=int, default=256, help="image size h,w")
     p.add_argument("--batch-size", type=int, default=1, help="global batch size")
@@ -140,6 +164,32 @@ def parse_cyclegan(argv=None) -> CycleGANConfig:
                    help="gan_tpu data flag; parsed, unused by the port")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="gan_tpu training flag; parsed, unused by the port")
+
+
+def parse_pix2pix(argv=None) -> Pix2PixConfig:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    p = argparse.ArgumentParser("pix2pix")
+    p.add_argument("--data", type=str, required=True, help="path to data")
+    p.add_argument("--generator-loss", type=str, default="l1", choices=["l1", "ssim"],
+                   help="combined generator loss function")
+    p.add_argument("--input-img-orient", type=str, default="left", choices=["left", "right"],
+                   help="whether input image is on left (i.e. target right) or vice-versa")
+    p.add_argument("--lambda", dest="lam", type=int, default=100,
+                   help="lambda value for secondary generator loss")
+    _add_common(p, argv)
+    cfg = Pix2PixConfig(**vars(p.parse_args(argv)))
+    cfg.validate()
+    return cfg
+
+
+def parse_cyclegan(argv=None) -> CycleGANConfig:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    p = argparse.ArgumentParser("cycle_gan")
+    p.add_argument("--input-images", type=str, required=True, help="path to input images")
+    p.add_argument("--target-images", type=str, required="--train" in argv,
+                   help="path to target images")
+    p.add_argument("--lambda", dest="lam", type=int, default=10, help="lambda parameter value")
+    _add_common(p, argv)
     cfg = CycleGANConfig(**vars(p.parse_args(argv)))
     cfg.validate()
     return cfg

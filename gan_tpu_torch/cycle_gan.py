@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 import sys
 
-from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan
+from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, refuse_unported
 from gan_tpu_torch.data.pipeline import build_cyclegan_cache
 from gan_tpu_torch.data.split import cyclegan_split, list_images
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
@@ -33,17 +33,8 @@ from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 from gan_tpu_torch.utils import dump_json, make_run_dirs, redirect_logging, write_loss_figs
 
 
-def _refuse_unported(cfg: CycleGANConfig) -> None:
-    unported = [flag for flag, on in (("--resume", cfg.resume),
-                                      ("--checkpoint-every", cfg.checkpoint_every),
-                                      ("--num-devices > 1", cfg.num_devices > 1)) if on]
-    if cfg.train and unported:
-        raise SystemExit(f"gan_tpu_torch: {', '.join(unported)} with --train is not "
-                         "ported yet; train with cycle_gan.py (gan_tpu) or drop the flag")
-
-
 def main(cfg: CycleGANConfig) -> None:
-    _refuse_unported(cfg)
+    refuse_unported(cfg)
     dirs = make_run_dirs(cfg.output)
     if cfg.logging == "true":
         redirect_logging(dirs)

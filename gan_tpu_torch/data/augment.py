@@ -5,6 +5,8 @@
   random crop of each (S+30)² image to S², a 50% left-right mirror per image,
   then normalize. ``crop_flip_normalize`` does the crop for given draws, so
   a test can hand both packages the same offsets.
+* ``paired_jitter_batch``: Pix2Pix's ``random_jitter``: one crop offset and
+  one mirror gate per (input, target) pair, shared by both images.
 
 gan_tpu expresses the crop as one-hot selector matmuls, a TPU matrix-unit
 trick; here it is a gather on the device. Both select exactly, so the
@@ -36,15 +38,33 @@ def crop_flip_normalize(batch_u8: torch.Tensor, oh: torch.Tensor, ow: torch.Tens
     return normalize_batch(out, dtype)
 
 
+def _draws(b: int, src: int, img_size: int, generator: torch.Generator | None, device):
+    """Crop offsets uniform in [0, src − img_size], and a mirror gate that is
+    on when a uniform draw exceeds 0.5."""
+    limit = src - img_size + 1
+    oh = torch.randint(0, limit, (b,), generator=generator, device=device)
+    ow = torch.randint(0, limit, (b,), generator=generator, device=device)
+    flip = torch.rand(b, generator=generator, device=device) > 0.5
+    return oh, ow, flip
+
+
 def single_jitter_batch(batch_u8: torch.Tensor, generator: torch.Generator | None, *,
                         img_size: int, dtype=torch.float32) -> torch.Tensor:
     """Independent crop + mirror + normalize. batch_u8: (B, S+30, S+30, C) uint8
-    on the generator's device; crop offsets uniform in [0, S'−S], mirror when a
-    uniform draw exceeds 0.5."""
-    b, src = batch_u8.shape[0], batch_u8.shape[1]
-    dev = batch_u8.device
-    limit = src - img_size + 1
-    oh = torch.randint(0, limit, (b,), generator=generator, device=dev)
-    ow = torch.randint(0, limit, (b,), generator=generator, device=dev)
-    flip = torch.rand(b, generator=generator, device=dev) > 0.5
+    on the generator's device."""
+    oh, ow, flip = _draws(batch_u8.shape[0], batch_u8.shape[1], img_size, generator,
+                          batch_u8.device)
     return crop_flip_normalize(batch_u8, oh, ow, flip, img_size=img_size, dtype=dtype)
+
+
+def paired_jitter_batch(batch_u8: torch.Tensor, generator: torch.Generator | None, *,
+                        img_size: int, dtype=torch.float32, draws=None):
+    """Paired crop + mirror + normalize. batch_u8: (B, 2, S+30, S+30, C) uint8,
+    axis 1 = (input, target), on the generator's device. ``draws`` = (oh, ow,
+    flip), each (B,), replaces the generator's. Returns (input, target), each
+    a contiguous (B, S, S, C) tensor in ``dtype``."""
+    if draws is None:
+        draws = _draws(batch_u8.shape[0], batch_u8.shape[2], img_size, generator,
+                       batch_u8.device)
+    return tuple(crop_flip_normalize(batch_u8[:, k], *draws, img_size=img_size, dtype=dtype)
+                 for k in (0, 1))

@@ -1,15 +1,20 @@
-"""CycleGAN's composite losses (counterpart of gan_tpu/losses.py).
+"""Pix2Pix's and CycleGAN's composite losses (counterpart of gan_tpu/losses.py).
 
 * ``discriminator_loss``: (BCE(1, real) + BCE(0, generated)) · factor, called
   with factor 0.5;
 * ``generator_adversarial_loss``: BCE(1, D(fake));
+* ``pix2pix_secondary_loss``: L1 mean|target − G(x)|, or gan_tpu's corrected
+  SSIM loss 1 − SSIM(G(x), target) (``--generator-loss ssim``);
+* ``pix2pix_generator_loss``: (adversarial + λ · secondary, adversarial,
+  secondary);
 * ``cycle_loss``: λ · mean|real − cycled|;
 * ``identity_loss``: λ · 0.5 · mean|real − same|.
 
-``CYCLEGAN_LOSS_KEYS`` name the metrics JSON entries and the figure files,
-byte for byte as in the reference. gan_tpu's ``sg_tree`` has no counterpart:
-the port takes each network's gradient with its own ``torch.autograd.grad``
-(train/cyclegan_trainer.py). The Pix2Pix losses come with the Pix2Pix path.
+``PIX2PIX_LOSS_KEYS`` and ``CYCLEGAN_LOSS_KEYS`` name the metrics JSON
+entries and the figure files, byte for byte as in the reference. gan_tpu's
+``sg_tree`` has no counterpart: the port takes each network's gradient with
+its own ``torch.autograd.grad`` (train/cyclegan_trainer.py,
+train/pix2pix_trainer.py).
 """
 
 from __future__ import annotations
@@ -17,7 +22,14 @@ from __future__ import annotations
 import torch
 
 from gan_tpu_torch.ops.loss_ops import bce_with_logits, l1_loss
+from gan_tpu_torch.ops.ssim import ssim_loss
 
+PIX2PIX_LOSS_KEYS = (
+    "Generator Total Loss",
+    "Generator Loss (Primary)",
+    "Generator Loss (Secondary)",
+    "Discriminator Loss",
+)
 CYCLEGAN_LOSS_KEYS = (
     "X->Y Generator Loss",
     "Y->X Generator Loss",
@@ -42,6 +54,23 @@ def discriminator_loss(disc_real_logits, disc_generated_logits, factor: float = 
 
 def generator_adversarial_loss(disc_generated_logits):
     return bce_with_logits(torch.ones_like(disc_generated_logits), disc_generated_logits)
+
+
+def pix2pix_secondary_loss(gen_output, target, kind: str):
+    """The λ-weighted secondary generator loss: 'l1' or 'ssim'."""
+    if kind == "l1":
+        return l1_loss(target, gen_output)
+    if kind == "ssim":
+        return ssim_loss(gen_output, target)
+    raise ValueError(f"unknown generator loss {kind!r}")
+
+
+def pix2pix_generator_loss(disc_generated_logits, gen_output, target, *, lam: float,
+                           kind: str = "l1"):
+    """(total, adversarial, secondary)."""
+    gan = generator_adversarial_loss(disc_generated_logits)
+    secondary = pix2pix_secondary_loss(gen_output, target, kind)
+    return gan + lam * secondary, gan, secondary
 
 
 def cycle_loss(real, cycled, lam: float):

@@ -1,7 +1,9 @@
-"""70×70 PatchGAN discriminator, CycleGAN's unconditional form (counterpart of
-gan_tpu/models/patchgan.py with ``target=False``).
+"""70×70 PatchGAN discriminator (counterpart of gan_tpu/models/patchgan.py):
+CycleGAN's unconditional form, or with ``target=True`` Pix2Pix's conditional
+one, which reads ``cat([input, target], -1)``.
 
-    downsample 64 (no norm) → 128 → 256
+    [cat(input, target)]
+    downsample 64 (no norm: the stem kernel S) → 128 → 256
     ZeroPad(1) → Conv 512 k4 s1 VALID, no bias → norm → LeakyReLU(0.3)
     ZeroPad(1) → Conv 1 k4 s1 VALID with bias
 
@@ -9,7 +11,7 @@ A 256² input gives 30×30 logits, in fp32; the 512-channel norm sits at 31².
 Parameter names are gan_tpu's (``down_0..2``, ``conv512``, ``norm512``,
 ``last.conv``, ``last.bias``), so gan_tpu_torch.transplant converts them as it
 does the U-Net's. Conv weights are OIHW, kept in channels-last memory as the
-U-Net's are. The conditional (Pix2Pix) form and batch norm come with Pix2Pix.
+U-Net's are. Norms are instance (CycleGAN) or batch (Pix2Pix).
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ class _Last(nn.Module):
 
 
 class PatchGANDiscriminator(nn.Module):
-    def __init__(self, in_channels: int, *, norm: str = "instance",
+    def __init__(self, in_channels: int, *, norm: str = "instance", target: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.down_0 = Downsample(in_channels, 64, norm=norm, apply_norm=False,
-                                 generator=generator)
+        self.target = target
+        c_in = 2 * in_channels if target else in_channels
+        self.down_0 = Downsample(c_in, 64, norm=norm, apply_norm=False, generator=generator)
         self.down_1 = Downsample(64, 128, norm=norm, generator=generator)
         self.down_2 = Downsample(128, 256, norm=norm, generator=generator)
         self.conv512 = conv_kernel_init((512, 256, 4, 4), generator)
@@ -44,8 +47,14 @@ class PatchGANDiscriminator(nn.Module):
         self.last = _Last(512, generator)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x, *, compute_dtype=None):
-        """x: (N, H, W, C_in) → patch logits (N, H/8 − 2, W/8 − 2, 1) in fp32."""
+    def forward(self, x, y=None, *, compute_dtype=None):
+        """x: (N, H, W, C); y: the target image, given iff ``target`` →
+        patch logits (N, H/8 − 2, W/8 − 2, 1) in fp32."""
+        if self.target != (y is not None):
+            raise ValueError("a conditional PatchGAN takes (input, target); "
+                             "an unconditional one takes the image alone")
+        if y is not None:
+            x = torch.cat([x, y], dim=-1)   # (input, target) order; promotes as jnp does
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         h = self.down_0(x, compute_dtype=compute_dtype)

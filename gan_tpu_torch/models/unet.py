@@ -1,4 +1,5 @@
-"""U-Net generator (counterpart of gan_tpu/models/unet.py).
+"""U-Net generator (counterpart of gan_tpu/models/unet.py), with instance norm
+(CycleGAN) or batch norm (Pix2Pix).
 
 At 256²: 8 downsample blocks (64, 128, 256, 512×5; the first without norm) to
 a 1×1×512 bottleneck, 7 upsample blocks (512×3 with dropout, 512, 256, 128,
@@ -63,17 +64,20 @@ class UNetGenerator(nn.Module):
         return sum(drop for _f, drop in self.up_specs)
 
     def forward(self, x, *, generator: torch.Generator | None = None,
-                masks: Sequence[torch.Tensor] | None = None, compute_dtype=None):
+                masks: Sequence[torch.Tensor] | None = None, compute_dtype=None,
+                per_sample: bool = False):
         """x: (N, H, W, C_in) -> (N, H, W, out_channels) fp32 in [-1, 1].
 
         Dropout draws from ``generator``, or takes ``masks`` (one keep-mask per
-        dropout site, in call order); with neither it is off."""
+        dropout site, in call order); with neither it is off. ``per_sample``
+        gives batch norm each image's own statistics (predict); instance norm
+        has them anyway."""
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         skips = []
         h = x
         for i in range(self.depth):
-            h = getattr(self, f"down_{i}")(h, compute_dtype=compute_dtype)
+            h = getattr(self, f"down_{i}")(h, compute_dtype=compute_dtype, per_sample=per_sample)
             skips.append(h)
         skips = skips[:-1][::-1]
 
@@ -81,7 +85,8 @@ class UNetGenerator(nn.Module):
         for i, (_f, use_drop) in enumerate(self.up_specs):
             mask = next(mask_iter) if use_drop and mask_iter is not None else None
             h = getattr(self, f"up_{i}")(h, compute_dtype=compute_dtype, drop_mask=mask,
-                                         drop_generator=generator if use_drop else None)
+                                         drop_generator=generator if use_drop else None,
+                                         per_sample=per_sample)
             h = torch.cat([h, skips[i]], dim=-1)
 
         out = conv2d_transpose_up(h, self.last.conv, compute_dtype=compute_dtype)

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from gan_tpu_torch.ops.norm import activation
+
 
 def _same_pad(in_size: int, stride: int, k: int) -> tuple[int, int]:
     """TF 'SAME' padding (lo, hi) for one spatial dim."""
@@ -59,6 +61,13 @@ def conv2d_same(x, w, stride: int = 2, *, compute_dtype=None):
 def conv2d_down(x, w, *, compute_dtype=None):
     """Stride-2 'same' conv — the U-Net downsample conv."""
     return conv2d_same(x, w, 2, compute_dtype=compute_dtype)
+
+
+def stem_conv(x, w, *, compute_dtype=None):
+    """The stem block without a norm: LeakyReLU(0.3) of :func:`conv2d_down`.
+    The plain version of the fused kernel S (gan_tpu_torch/ops/kernels.py:
+    stem_conv), which every network's first block runs."""
+    return activation(conv2d_down(x, w, compute_dtype=compute_dtype), "leaky_relu")
 
 
 def conv2d_valid(x, w, *, pad: int = 0, compute_dtype=None):

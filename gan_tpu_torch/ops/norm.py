@@ -1,9 +1,15 @@
-"""Instance normalization, plain PyTorch (counterpart of gan_tpu/ops/norm.py).
+"""Instance and batch normalization, plain PyTorch (counterpart of gan_tpu/ops/norm.py).
 
-Per-sample, per-channel moments over (H, W) of an NHWC tensor, epsilon 1e-5,
-two-pass variance E[(x - mean)^2] in fp32; the output is cast back to the
-input dtype so bf16 activations stay bf16. ``act`` is the activation
-epilogue that the fused kernel carries (gan_tpu/ops/pallas_kernels.py:95-98).
+Instance norm: per-sample, per-channel moments over (H, W) of an NHWC tensor,
+epsilon 1e-5, two-pass variance E[(x - mean)^2] in fp32; the output is cast
+back to the input dtype so bf16 activations stay bf16. ``act`` is the
+activation epilogue that the fused kernel carries
+(gan_tpu/ops/pallas_kernels.py:95-98).
+
+Batch norm (Pix2Pix): moments over (N, H, W) per channel, Keras' epsilon
+1e-3, the same fp32 two-pass form, and no running statistics: the reference
+calls every network in training mode, so batch statistics are always used.
+Cross-replica statistics (``--bn-cross-replica``) come with data parallelism.
 
 This is the reference the CUDA kernels (gan_tpu_torch/ops/kernels.py) are
 held against, and the version a CPU tensor runs: on the CPU autograd takes
@@ -16,6 +22,7 @@ from __future__ import annotations
 import torch
 
 IN_EPS = 1e-5       # reference InstanceNormalization epsilon
+BN_EPS = 1e-3       # Keras BatchNormalization default
 LEAKY_SLOPE = 0.3   # tf.keras.layers.LeakyReLU default alpha
 ACTS = (None, "leaky_relu", "relu")
 
@@ -30,17 +37,27 @@ def activation(x: torch.Tensor, act: str | None) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}; expected one of {ACTS}")
 
 
-def instance_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor, *,
-                  act: str | None = None) -> torch.Tensor:
-    """x: (N, H, W, C); scale, offset: (C,)."""
+def _normalize(x, scale, offset, dims, eps):
     xf = x.float()
-    mean = xf.mean(dim=(1, 2), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2), keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + IN_EPS) * scale.float() + offset.float()
-    return activation(out, act).to(x.dtype)
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = (xf - mean).square().mean(dim=dims, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + offset.float()
 
 
-def instance_norm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor):
+def instance_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor, *,
+                  act: str | None = None, eps: float = IN_EPS) -> torch.Tensor:
+    """x: (N, H, W, C); scale, offset: (C,)."""
+    return activation(_normalize(x, scale, offset, (1, 2), eps), act).to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
+               eps: float = BN_EPS) -> torch.Tensor:
+    """x: (N, H, W, C); gamma, beta: (C,). Statistics over the whole batch."""
+    return _normalize(x, gamma, beta, (0, 1, 2), eps).to(x.dtype)
+
+
+def instance_norm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                           eps: float = IN_EPS):
     """The VJP of :func:`instance_norm` with ``act=None``, in the explicit form
     of gan_tpu/ops/pallas_kernels.py:_in_bwd_kernel, in fp32: with
     x̂ = (x − mean)·inv, dx = inv·(dy·γ − mean(dy·γ) − x̂·mean(dy·γ·x̂)),
@@ -48,7 +65,7 @@ def instance_norm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tenso
     dscale, doffset in fp32)."""
     xf, dyf = x.float(), dy.float()
     mean = xf.mean(dim=(1, 2), keepdim=True)
-    inv = torch.rsqrt((xf - mean).square().mean(dim=(1, 2), keepdim=True) + IN_EPS)
+    inv = torch.rsqrt((xf - mean).square().mean(dim=(1, 2), keepdim=True) + eps)
     xhat = (xf - mean) * inv
     dyg = dyf * scale.float()
     m1 = dyg.mean(dim=(1, 2), keepdim=True)

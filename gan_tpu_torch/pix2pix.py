@@ -1,0 +1,92 @@
+"""Pix2Pix CLI of the port (counterpart of pix2pix.py): train and predict.
+
+    python -m gan_tpu_torch.pix2pix --data PAIRS --output OUT --train --epochs 5 \\
+        [--img-size 256] [--batch-size 32] [--dtype bf16] [--generator-loss l1|ssim]
+    python -m gan_tpu_torch.pix2pix --data PAIRS --output OUT --predict --weights RUN_DIR
+
+``--data`` holds side-by-side (input | target) images (``--input-img-orient``
+says which half is the input). gan_tpu's flags
+(gan_tpu_torch.config.parse_pix2pix) and output tree: the run directory with
+``logs/config.json``; in train mode the seeded split,
+``logs/{train,val}_metrics.json``, 4 ``figs/Pix2Pix *.png``,
+``test_images/epoch_{N}.png`` every 5 epochs, ``final_test_imgs/img{N}.png``
+and ``training_checkpoints/<epoch>/`` (the last one); in predict mode
+``prediction_images/img{N}.png``. ``--weights`` points at a run (or
+``training_checkpoints/``) holding the port's torch checkpoints.
+
+``--resume``, ``--checkpoint-every`` and ``--num-devices`` > 1 are not ported
+yet: with ``--train`` they exit with an error. ``--use-pallas``,
+``--host-cache``, ``--device-cache``, ``--remat`` and ``--bn-cross-replica``
+are parsed and written to config.json but change nothing here: the stems and
+the per-image batch norm always run the CUDA kernels on the card, and the
+caches always live on it.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+from gan_tpu_torch.config import Pix2PixConfig, parse_pix2pix, refuse_unported
+from gan_tpu_torch.data.pipeline import build_pix2pix_cache
+from gan_tpu_torch.data.split import list_images, pix2pix_split
+from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
+from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
+from gan_tpu_torch.utils import dump_json, make_run_dirs, redirect_logging, write_loss_figs
+
+
+def main(cfg: Pix2PixConfig) -> None:
+    refuse_unported(cfg)
+    dirs = make_run_dirs(cfg.output)
+    if cfg.logging == "true":
+        redirect_logging(dirs)
+
+    trainer = Pix2PixTrainer(cfg)
+    cfg.dump(os.path.join(dirs.logs, "config.json"))
+
+    print("\nReading in and processing images.\n", flush=True)
+    contents = list_images(cfg.data)
+    if not contents:
+        raise SystemExit("No images found in data directory!")
+
+    def cache(names, train):
+        return build_pix2pix_cache([os.path.join(cfg.data, n) for n in names],
+                                   img_size=cfg.img_size, channels=cfg.n_channels,
+                                   orient=cfg.input_img_orient, train=train)
+
+    if cfg.predict:
+        predict_cache = cache(contents, train=False)
+        mgr = CheckpointManager(latest_checkpoint_dir(cfg.weights))
+        trainer.load_state(mgr.restore(map_location="cpu"))   # load_state copies to the device
+        trainer.predict(predict_cache, dirs.root,
+                        raw=cfg.raw_predictions == "true", raw_names=contents)
+
+    if cfg.train:
+        train_names, val_names, test_names = pix2pix_split(
+            contents, seed=cfg.seed, test_img=cfg.test_img, validation_size=cfg.validation_size)
+        train_cache = cache(train_names, train=True)
+        val_cache = cache(val_names, train=False)
+        test_cache = cache(test_names, train=False)
+
+        manager = (CheckpointManager(dirs.checkpoints, max_to_keep=1)
+                   if cfg.save_weights == "true" else None)
+        train_metrics, val_metrics = trainer.fit(train_cache, val_cache, test_cache, dirs.root,
+                                                 checkpoint_manager=manager)
+
+        os.makedirs(dirs.final_test_imgs, exist_ok=True)
+        test_norm = test_cache.astype(np.float32) / 127.5 - 1.0
+        for i in range(test_norm.shape[0]):
+            trainer.generate_image(test_norm[i:i + 1, 0], test_norm[i:i + 1, 1],
+                                   os.path.join(dirs.final_test_imgs, f"img{i}.png"),
+                                   key_index=i)
+        dump_json(train_metrics, os.path.join(dirs.logs, "train_metrics.json"))
+        dump_json(val_metrics, os.path.join(dirs.logs, "val_metrics.json"))
+        write_loss_figs(train_metrics, val_metrics, prefix="Pix2Pix ", output_path=dirs.figs)
+
+    print("Done.")
+
+
+if __name__ == "__main__":
+    main(parse_pix2pix(sys.argv[1:]))

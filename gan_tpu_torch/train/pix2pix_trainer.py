@@ -1,0 +1,172 @@
+"""Pix2Pix trainer (counterpart of gan_tpu/train/pix2pix_trainer.py).
+
+It holds the reference's two networks, the batch-norm U-Net generator and
+the conditional PatchGAN, and one Adam per network.
+
+**The step** (gan_tpu_torch/train/base.py). fake = G(x), then the
+discriminator on the real pair D(x, y) and on the fake pair D(x, fake), each
+in its own call, so each takes its own batch-norm statistics, as gan_tpu's
+separate applications do. The generator's total is adversarial + λ ·
+secondary (L1 or SSIM); the discriminator's is the BCE pair · 0.5. Each
+network takes the gradient of its own total with respect to its own
+parameters, so the one D(x, fake) serves both losses: the generator's
+gradient passes through D without touching D's parameters, and D's stops at
+the fake, which is gan_tpu's ``sg_tree`` / ``stop_gradient`` partition.
+
+**Draws.** Per step, one dropout generator and one jitter generator, seeded
+from (seed + 1, epoch, train or val, step, index).
+
+**Epochs** run in the fixed order of the split (the reference shuffles once
+there): full batches in order, then the exact-size remainder as a step of
+its own, since padding it would change the batch statistics. The uint8
+caches live whole on the device. gan_tpu's streamed and hybrid tiers, epoch
+segments, fault fence and data parallelism are not ported.
+
+**Predict** normalises each image with its own batch-norm statistics
+(``per_sample``, K1 on the card), as the reference's one-image-at-a-time
+loop does and gan_tpu's vmap over batch-1 sub-batches does.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gan_tpu_torch.config import Pix2PixConfig
+from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch
+from gan_tpu_torch.data.loader import iter_uint8_batches
+from gan_tpu_torch.losses import (PIX2PIX_LOSS_KEYS, discriminator_loss, empty_losses,
+                                  pix2pix_generator_loss)
+from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
+from gan_tpu_torch.train import loop
+from gan_tpu_torch.train.base import GANTrainer, generator_depth, raw_png_names, write_raw
+from gan_tpu_torch.train.checkpoint import CheckpointManager
+from gan_tpu_torch.utils.grids import save_image_grid
+
+NETWORKS = ("gen", "disc")
+_DROPOUT, _JITTER = 0, 1   # draw indices within a step
+
+
+class Pix2PixTrainer(GANTrainer):
+    def __init__(self, config: Pix2PixConfig):
+        c = config.n_channels
+        init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
+        self.gen = UNetGenerator(c, c, norm="batch", depth=generator_depth(config.img_size),
+                                 generator=init)
+        self.disc = PatchGANDiscriminator(c, norm="batch", target=True, generator=init)
+        super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
+                         sampler="gen")
+
+    # ------------------------------------------------------------------ step
+    def _losses(self, x, y, generator: Optional[torch.Generator]):
+        """({network: its total loss}, the 4 losses in PIX2PIX_LOSS_KEYS
+        order). ``generator`` draws the dropout; None turns it off."""
+        cfg = self.config
+        dt = self.dtype
+        fake = self.gen(x, generator=generator, compute_dtype=dt)
+        d_real = self.disc(x, y, compute_dtype=dt)
+        d_fake = self.disc(x, fake, compute_dtype=dt)
+        gen_total, gen_gan, gen_sec = pix2pix_generator_loss(
+            d_fake, fake, y, lam=float(cfg.lam), kind=cfg.generator_loss)
+        disc = discriminator_loss(d_real, d_fake, 0.5)
+        return {"gen": gen_total, "disc": disc}, torch.stack([gen_total, gen_gan, gen_sec, disc])
+
+    def _step(self, u8: torch.Tensor, epoch: int, stream: int, step: int) -> torch.Tensor:
+        """Draws, paired jitter (train) or normalize (val), then a train or
+        eval step. u8: (B, 2, S', S', C) uint8 rows on the device."""
+        seed = self.config.seed + 1
+        drop = self._draws(seed, epoch, stream, step, _DROPOUT)
+        if stream == 0:
+            x, y = paired_jitter_batch(u8, self._draws(seed, epoch, stream, step, _JITTER),
+                                       img_size=self.config.img_size, dtype=self.dtype)
+            return self.train_step(x, y, drop)
+        x, y = (normalize_batch(u8[:, k], self.dtype).contiguous() for k in (0, 1))
+        return self.eval_step(x, y, drop)
+
+    def run_epoch(self, cache_dev: torch.Tensor, epoch: int, *, training: bool) -> np.ndarray:
+        """One pass over a uint8 cache on the device in its fixed order: the
+        full batches, then the remainder. Returns (steps, 4) losses, fetched
+        from the device once."""
+        b = self.config.batch_size
+        full, tail = loop.epoch_plan(cache_dev.shape[0], b)
+        stream = 0 if training else 1
+        losses = [self._step(cache_dev[s * b:(s + 1) * b], epoch, stream, s)
+                  for s in range(full + (tail > 0))]
+        if not losses:
+            return np.zeros((0, len(PIX2PIX_LOSS_KEYS)), np.float32)
+        return torch.stack(losses).cpu().numpy()
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, train_cache: np.ndarray, val_cache: np.ndarray, test_cache: np.ndarray,
+            output_path: str, checkpoint_manager: Optional[CheckpointManager] = None):
+        """Epoch loop of the reference (pix2pix.py:248-323). Caches from
+        gan_tpu_torch.data.pipeline.build_pix2pix_cache: train
+        (N, 2, S+30, S+30, C), val and test (N, 2, S, S, C). A checkpoint and
+        an ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end.
+        Returns the per-epoch mean losses of train and val."""
+        cfg = self.config
+        print("\nTraining...\n", flush=True)
+        example = test_cache[:1].astype(np.float32) / 127.5 - 1.0
+        train_dev, val_dev = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                              for a in (train_cache, val_cache))
+        start = time.time()
+        train_cost = empty_losses(PIX2PIX_LOSS_KEYS)
+        val_cost = empty_losses(PIX2PIX_LOSS_KEYS)
+        for epoch in range(cfg.epochs):
+            tr = self.run_epoch(train_dev, epoch, training=True)
+            print("." * (tr.shape[0] // 100), end="", flush=True)
+            va = self.run_epoch(val_dev, epoch, training=False)
+            for i, k in enumerate(PIX2PIX_LOSS_KEYS):
+                train_cost[k].append(float(tr[:, i].mean()) if len(tr) else float("nan"))
+                val_cost[k].append(float(va[:, i].mean()) if len(va) else float("nan"))
+
+            test_img_path = os.path.join(output_path, "test_images")
+            os.makedirs(test_img_path, exist_ok=True)
+            if (epoch + 1) % 5 == 0 and (epoch + 1) != cfg.epochs:
+                if checkpoint_manager is not None:
+                    checkpoint_manager.save(epoch + 1, self.state())
+                self.generate_image(example[:, 0], example[:, 1],
+                                    os.path.join(test_img_path, f"epoch_{epoch + 1}.png"),
+                                    key_index=epoch + 1)
+            if (epoch + 1) == cfg.epochs and checkpoint_manager is not None:
+                checkpoint_manager.save(epoch + 1, self.state())
+
+            print(f"\nCumulative training duration at end of epoch {epoch + 1}: "
+                  f"{(time.time() - start) / 60:.2f} min")
+            print(f"Train generator loss: {round(train_cost['Generator Total Loss'][-1], 2)}, "
+                  f"train discriminator loss: {round(train_cost['Discriminator Loss'][-1], 2)}")
+            print(f"Val generator loss: {round(val_cost['Generator Total Loss'][-1], 2)}, "
+                  f"val discriminator loss: {round(val_cost['Discriminator Loss'][-1], 2)}\n")
+        return train_cost, val_cost
+
+    # --------------------------------------------------------------- predict
+    def generate_image(self, input_image: np.ndarray, target: np.ndarray, path_filename: str,
+                       key_index: Optional[int] = None) -> None:
+        """3-panel Input / Ground Truth / Predicted grid."""
+        pred = self.generate(input_image, key_index=key_index)
+        save_image_grid([input_image[0], target[0], pred[0]], path_filename,
+                        channels=self.config.channels)
+
+    def predict(self, predict_cache: np.ndarray, output_path: str,
+                raw: bool = False, raw_names=None) -> None:
+        """prediction_images/img{N}.png (Input / Ground Truth / Predicted) for
+        each (N, 2, S, S, C) pair, in 64-image chunks."""
+        plot_path = os.path.join(output_path, "prediction_images")
+        os.makedirs(plot_path, exist_ok=True)
+        n = predict_cache.shape[0]
+        png_names = raw_png_names(raw_names, n) if raw else None
+        off = 0
+        for batch in iter_uint8_batches(predict_cache, 64):
+            preds = self.generate_batched(batch[:, 0])
+            for i in range(batch.shape[0]):
+                pair = batch[i].astype(np.float32) / 127.5 - 1.0
+                save_image_grid([pair[0], pair[1], preds[i]],
+                                os.path.join(plot_path, f"img{off + i}.png"),
+                                channels=self.config.channels)
+            if raw:
+                write_raw(preds, output_path, png_names[off:off + batch.shape[0]])
+            off += batch.shape[0]

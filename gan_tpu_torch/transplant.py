@@ -1,14 +1,17 @@
 """Convert gan_tpu network parameters to the port's state_dict and back.
 
-Any of CycleGAN's four networks: the U-Net generators and the PatchGAN
-discriminators. gan_tpu keeps parameters as a nested dict (``{"down_1":
-{"conv": ..., "norm": {"scale": ..., "offset": ...}}, "conv512": ...}``); the
+Any network of either model: the U-Net generators and the PatchGAN
+discriminators, with instance or batch norm. gan_tpu keeps parameters as a
+nested dict (``{"down_1": {"conv": ..., "norm": {"scale": ..., "offset":
+...}}, "conv512": ...}``); the
 port's state_dict key is that path joined by dots. Every 4-D kernel changes
 layout with ``permute(3, 2, 0, 1)``: a conv's HWIO ``(k, k, C_in, C_out)``
 becomes OIHW (the PatchGAN's ``conv512`` and ``last.conv`` too), and a TF
 transposed conv's ``(k, k, C_out, C_in)`` becomes torch's
-``(C_in, C_out, k, k)``. Norm scale/offset and the last biases are copied as
-they are.
+``(C_in, C_out, k, k)``. Norm scale/offset (instance) and gamma/beta (batch)
+and the last biases are copied as they are. ``networks_to_state_dicts``
+converts a trainer's whole ``{network: params}`` tree, such as Pix2Pix's
+``{"gen": ..., "disc": ...}``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ def params_to_state_dict(params) -> dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+def networks_to_state_dicts(params) -> dict[str, dict[str, torch.Tensor]]:
+    """gan_tpu trainer params ``{network: params}`` -> ``{network:
+    state_dict}``, the ``"params"`` of a port trainer's state."""
+    return {name: params_to_state_dict(tree) for name, tree in params.items()}
 
 
 def state_dict_to_params(state_dict) -> dict:

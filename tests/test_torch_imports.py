@@ -28,6 +28,8 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
         "import gan_tpu_torch.data.pipeline, gan_tpu_torch.utils\n"
         "import gan_tpu_torch.models.patchgan, gan_tpu_torch.losses, gan_tpu_torch.ops.loss_ops\n"
         "import gan_tpu_torch.train.optim, gan_tpu_torch.train.loop, gan_tpu_torch.utils.figs\n"
+        "import gan_tpu_torch.pix2pix, gan_tpu_torch.train.pix2pix_trainer, gan_tpu_torch.ops.ssim\n"
+        "import gan_tpu_torch.train.base, gan_tpu_torch.data.augment, gan_tpu_torch.data.split\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'PIL', 'matplotlib',\n"
@@ -83,3 +85,23 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(case):
         kw["act"] = "gelu"
     with pytest.raises((ValueError, TypeError)):
         kernels.instance_norm(x, scale, offset, **kw)
+
+
+@pytest.mark.parametrize("case", ["c_in_4", "filters_32", "odd_h", "float16", "non_contiguous"])
+def test_stem_wrapper_refuses_what_the_kernel_does_not_take(case):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 2)).astype(np.float32))
+    w = torch.from_numpy((0.02 * rng.standard_normal((64, 2, 4, 4))).astype(np.float32))
+    kw = {}
+    if case == "c_in_4":
+        x, w = torch.cat([x, x], -1), torch.cat([w, w], 1)
+    elif case == "filters_32":
+        w = w[:32]
+    elif case == "odd_h":
+        x = x[:, :7].contiguous()
+    elif case == "float16":
+        kw["compute_dtype"] = torch.float16
+    elif case == "non_contiguous":
+        x = x.permute(0, 2, 1, 3)
+    with pytest.raises((ValueError, TypeError)):
+        kernels.stem_conv(x, w, **kw)

@@ -1,8 +1,9 @@
-"""The instance-norm kernel wrappers: on a CPU tensor they run the plain
-versions; on the card (``-m cuda``) the CUDA kernels, K1 forward and K2
-backward, are held against the plain versions at the generator's shapes and
-the PatchGAN's 31² site. This file imports no jax, so it also runs where jax
-is absent:
+"""The kernel wrappers: on a CPU tensor they run the plain versions; on the
+card (``-m cuda``) the CUDA kernels, K1 forward (also with batch norm's
+epsilon, as per-image batch norm runs it) and K2 backward, are held against
+the plain versions at the generator's shapes and the PatchGAN's 31² site, and
+the stem kernel S, forward and backward, at every C_in it takes. This file
+imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from gan_tpu_torch.ops import kernels, norm
+from gan_tpu_torch.ops import conv, kernels, norm
 from torch_inputs import norm_inputs
 
 # fp32: Welford (kernel) vs two-pass (plain) fp32 sums
@@ -48,6 +49,20 @@ def test_instance_norm_kernel_matches_plain(cuda_device, shape, act, dtype):
     assert kernels.LAUNCHES["instance_norm_fwd"] == before + 1
     want = norm.instance_norm(x, scale, offset, act=act)
     # fp32: Welford vs two-pass sums; bf16: one output rounding, 1 ulp = 2^-7 relative
+    atol, rtol = (NORM_ATOL, 1e-5) if dtype == torch.float32 else (1e-3, 2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 1, 1, 512), (16, 2, 2, 512), (2, 128, 128, 64)])
+def test_instance_norm_kernel_with_batch_norm_eps_matches_plain(cuda_device, shape, dtype):
+    """Per-image batch norm: K1 with eps 1e-3, tolerances as above."""
+    x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
+    x = x.to(dtype)
+    got = kernels.instance_norm(x, scale, offset, eps=norm.BN_EPS)
+    torch.cuda.synchronize()
+    want = norm.instance_norm(x, scale, offset, eps=norm.BN_EPS)
     atol, rtol = (NORM_ATOL, 1e-5) if dtype == torch.float32 else (1e-3, 2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -116,9 +131,9 @@ def test_instance_norm_autograd_launches_k1_then_k2(cuda_device):
         y = torch.cat([fn(*leaves), torch.zeros(2, 8, 8, 32, device=cuda_device)], dim=-1)
         grads.append(torch.autograd.grad((y * cot).sum(), leaves))
         launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"instance_norm_fwd": 1, "instance_norm_bwd": 1}
+        assert launched == ({"instance_norm_fwd": 1, "instance_norm_bwd": 1, "stem_conv": 0}
                             if fn is kernels.instance_norm else
-                            {"instance_norm_fwd": 0, "instance_norm_bwd": 0})
+                            {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 0})
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
@@ -130,3 +145,60 @@ def test_instance_norm_epilogue_refuses_grad(cuda_device):
     with pytest.raises(NotImplementedError, match="epilogue"):
         kernels.instance_norm(x, torch.ones(32, device=cuda_device),
                               torch.zeros(32, device=cuda_device), act="relu")
+
+
+def _stem_inputs(shape, device, dtype=torch.float32, seed=6):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(device)
+    w = torch.from_numpy((0.02 * rng.standard_normal((64, shape[-1], 4, 4))).astype(np.float32))
+    return x, w.to(device).to(memory_format=torch.channels_last)   # as the models keep it
+
+
+# S against its plain version. fp32 (TF32 off): 16·C_in products summed in
+# another order than cuDNN's. bf16: the same bf16 products summed in fp32;
+# the kernel rounds once after the LeakyReLU, the plain version rounds the
+# conv and then the slope's product: one ulp plus that rounding.
+STEM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7 + 2 ** -8)}
+
+
+def test_stem_wrapper_on_cpu_runs_the_plain_version():
+    x, w = _stem_inputs((2, 8, 8, 3), "cpu")
+    before = kernels.LAUNCHES["stem_conv"]
+    got = kernels.stem_conv(x, w, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(got, conv.stem_conv(x, w, compute_dtype=torch.bfloat16),
+                               rtol=0, atol=0)
+    assert kernels.LAUNCHES["stem_conv"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in", kernels.STEM_CHANNELS)
+@pytest.mark.parametrize("nhw", [(2, 64, 64), (1, 256, 256), (3, 6, 10)])
+def test_stem_kernel_matches_plain(cuda_device, nhw, c_in, dtype):
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = _stem_inputs((*nhw, c_in), cuda_device)
+    before = kernels.LAUNCHES["stem_conv"]
+    got = kernels.stem_conv(x, w, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stem_conv"] == before + 1
+    want = conv.stem_conv(x, w, compute_dtype=dtype)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    atol, rtol = STEM_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", [1, 2])
+def test_stem_autograd_matches_plain(cuda_device, c_in):
+    """dx and dw through ``StemConvFunction`` (S forward, cuDNN backward)
+    against autograd of the plain version, fp32 with TF32 off: the same
+    convolution_backward on the same masked dy (1e-5)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = _stem_inputs((2, 32, 32, c_in), cuda_device)
+    dy = torch.randn(2, 16, 16, 64, device=cuda_device)
+    grads = []
+    for fn in (kernels.stem_conv, conv.stem_conv):
+        leaves = [t.clone().requires_grad_() for t in (x, w)]
+        grads.append(torch.autograd.grad(fn(*leaves, compute_dtype=torch.float32), leaves, dy))
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)

@@ -97,5 +97,21 @@ def test_transplant_round_trip():
 
 
 def test_batch_norm_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        UNetGenerator(1, 1, norm="batch", depth=5)
+    """The batch-norm U-Net (Pix2Pix's generator) against gan_tpu's: batch
+    statistics over the batch of 3, non-zero betas (at init 0), dropout off,
+    fp32 and bf16. Tolerances as for the instance-norm U-Net above; fp32 also
+    covers gan_tpu's E[x²] − mean² against the port's two-pass variance."""
+    jax_gen = JaxUNet(out_channels=1, norm="batch", depth=5)
+    rng = np.random.default_rng(4)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        if path[-1].key in ("beta", "bias") else a, jax_gen.init(jax.random.PRNGKey(4), 1))
+    gen = UNetGenerator(1, 1, norm="batch", depth=5)
+    gen.load_state_dict(params_to_state_dict(params))
+    x = rng.uniform(-1, 1, (3, 32, 32, 1)).astype(np.float32)
+    for jdt, tdt, atol in ((None, None, 2e-5), (jnp.bfloat16, torch.bfloat16, 0.03)):
+        want = np.asarray(jax_gen.apply(params, jnp.asarray(x), rng=None, compute_dtype=jdt))
+        with torch.no_grad():
+            got = gen(torch.from_numpy(x), compute_dtype=tdt).numpy()
+        assert got.shape == want.shape == (3, 32, 32, 1) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=atol)

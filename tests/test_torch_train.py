@@ -137,8 +137,28 @@ def test_patchgan_transplant_round_trip():
 
 
 def test_patchgan_batch_norm_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        PatchGANDiscriminator(1, norm="batch")
+    """The conditional batch-norm PatchGAN (Pix2Pix's discriminator) against
+    gan_tpu's: cat(input, target) into a 2-channel stem, batch statistics,
+    non-zero betas and bias, fp32 and bf16. Tolerances as for the
+    instance-norm PatchGAN above. Without a target it raises."""
+    jax_disc = JaxPatchGAN(norm="batch", target=True)
+    rng = np.random.default_rng(5)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        if path[-1].key in ("beta", "bias") else a, jax_disc.init(jax.random.PRNGKey(5), 1))
+    disc = PatchGANDiscriminator(1, norm="batch", target=True)
+    disc.load_state_dict(params_to_state_dict(params))
+    assert disc.down_0.conv.shape == (64, 2, 4, 4)
+    x, y = (rng.uniform(-1, 1, (2, 64, 64, 1)).astype(np.float32) for _ in range(2))
+    for jdt, tdt, atol in ((None, None, 2e-5), (jnp.bfloat16, torch.bfloat16, 0.05)):
+        want = np.asarray(jax.jit(lambda p, a, b: jax_disc.apply(p, a, b, compute_dtype=jdt))(
+            params, jnp.asarray(x), jnp.asarray(y)))
+        with torch.no_grad():
+            got = disc(torch.from_numpy(x), torch.from_numpy(y), compute_dtype=tdt).numpy()
+        assert got.shape == want.shape == (2, 6, 6, 1) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=atol)
+    with pytest.raises(ValueError, match="conditional"):
+        disc(torch.from_numpy(x))
 
 
 def test_losses_match_gan_tpu():
