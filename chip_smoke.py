@@ -11,10 +11,14 @@ Phases, each printed; any failure raises and the script exits non-zero:
 3. the instance-norm forward kernel (K1) against its plain PyTorch version
    at every norm site of the 256² generator at batch 16, in fp32 and bf16,
    for each activation epilogue and with batch norm's epsilon (Pix2Pix's
-   per-image batch norm), with the device time of both (CUDA graph replays
-   timed with CUDA events), of the library (``F.instance_norm``, or
-   ``F.group_norm`` at H·W = 1, which ``F.instance_norm`` refuses; followed
-   by ``F.leaky_relu`` or ``F.relu`` for an epilogue) and the bound;
+   per-image batch norm), with each site's launch plan, the device time of
+   both (CUDA graph replays timed with CUDA events), of the library
+   (``F.instance_norm``, or ``F.group_norm`` at H·W = 1, which
+   ``F.instance_norm`` refuses; followed by ``F.leaky_relu`` or ``F.relu``
+   for an epilogue), the bound, the kernel's share of it and its ratio to
+   the library; at the largest site, ``cudaOccupancyMaxActiveClusters``, the
+   chosen plan against other geometries, and the chosen plan's per-block
+   timeline;
 4. the stem kernel (S) against its plain version at every stem shape the
    paths run, in fp32 and bf16, with the device time of both, of the library
    pair ``F.conv2d`` + ``F.leaky_relu`` and the bound; its backward (dx and
@@ -28,7 +32,8 @@ Phases, each printed; any failure raises and the script exits non-zero:
    (``plain_path``: S and K1 swapped for their plain versions); then
    torch.profiler over 5 generator forwards, kernel and plain path;
 6. the backward kernel (K2), and K1, against their plain versions at every
-   instance-norm shape of a CycleGAN training step at batch 8;
+   instance-norm shape of a CycleGAN training step at batch 8, with the
+   same columns, plan sweep and timeline as phase 3;
 7. the CycleGAN training slice: ``CycleGANTrainer.fit`` for one epoch at
    256², depth 8, bf16, batch 8 on seeded uint8 caches (84 X and 88 Y
    images of 286², 16 + 16 val), with K1, K2 and S launch counts derived from
@@ -257,17 +262,102 @@ def library_bwd_ms(x, scale, offset, dy) -> float:
     return device_ms(fwd_bwd) - fwd
 
 
+L2_NOTE = ("device_ms leaves the inputs in the 50 MB L2 between calls where they fit, so a "
+           "share of the byte bound above 100% at a small site means L2, not an error")
+
+
+def _plan_str(plan) -> str:
+    return f"{plan.k}/{plan.channel_tile}/{plan.smem_bytes}"
+
+
+def print_max_clusters(n: int, hw: int, c: int, backward: bool) -> None:
+    """cudaOccupancyMaxActiveClusters of the largest site's plans."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = kernels.norm_plan(n, hw * hw, c, dtype, backward=backward)
+        print(f"cudaOccupancyMaxActiveClusters, {'K2' if backward else 'K1'} at {n},{hw},{hw},{c} "
+              f"{str(dtype)[6:]}: {kernels.max_active_clusters(plan, n, c, dtype, backward)} "
+              f"clusters of {plan.k} ({plan.blocks} blocks in {plan.blocks // plan.k} clusters; "
+              f"{plan})")
+
+
+# other geometries to hold the chosen plan against at the largest site:
+# (blocks per cluster, channel tile)
+PLAN_SWEEP = ((8, 64), (16, 64), (8, 32), (4, 32), (16, 16))
+
+
+def plan_sweep(n: int, hw: int, c: int, backward: bool) -> None:
+    """The chosen plan of K1 (or K2) at ``n``×``hw``²×``c`` in bf16 against
+    the PLAN_SWEEP geometries: each checked against the plain version, with
+    its cudaOccupancyMaxActiveClusters and device time."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    x = (torch.randn(n, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
+    scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
+    offset = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(x.shape, device="cuda", generator=g).to(dtype)
+    chosen = kernels.norm_plan(n, hw * hw, c, dtype, backward=backward)
+    plans = [chosen]
+    for k, ct in PLAN_SWEEP:
+        p = kernels.make_plan(n, hw * hw, c, dtype, k, ct, chosen.vec, backward=backward)
+        if p not in plans and p.smem_bytes <= kernels.MAX_SMEM:
+            plans.append(p)
+    if backward:
+        want = norm.instance_norm_backward(x, scale, dy)[0]
+    else:
+        want = norm.instance_norm(x, scale, offset)
+    b_ms, _ = bound_ms((3 if backward else 2) * x.numel() * x.element_size())
+    atol, rtol = KERNEL_TOL[dtype]
+    for p in plans:
+        if backward:
+            fn = lambda: kernels._launch_bwd(x, scale, dy, norm.IN_EPS, plan=p)[0]
+        else:
+            fn = lambda: kernels._launch_fwd(x, scale, offset, None, norm.IN_EPS, plan=p)
+        torch.testing.assert_close(fn().float(), want.float(), atol=atol, rtol=rtol)
+        ms = device_ms(fn)
+        print(f"  {'chosen' if p is chosen else 'other ':>6} k {p.k:>2}, tile {p.channel_tile:>2}, "
+              f"staged {p.staged}, {p.smem_bytes:>6} B, {p.blocks:>4} blocks, "
+              f"{kernels.max_active_clusters(p, n, c, dtype, backward):>3} clusters at once: "
+              f"{ms * 1e3:8.2f} us, {b_ms / ms:6.1%} of the bound", flush=True)
+        if p is chosen:
+            print_timeline(fn, p, backward)
+
+
+# the timeline's phases: (name, from point, to point), csrc/instance_norm.cu
+TIMELINE = {False: (("stage x", 0, 1), ("band sums", 1, 3), ("exchange, merge", 3, 12),
+                    ("normalise, store", 12, 6)),
+            True: (("stage x (dy)", 0, 1), ("band sums with dy", 1, 3),
+                   ("exchange, merge", 3, 12), ("dx, store", 12, 6))}
+
+
+def print_timeline(fn, plan, backward: bool) -> None:
+    """Median µs of each phase of a block, from the kernels' per-block
+    timeline of one launch, and when the blocks started (waves)."""
+    t = kernels.norm_timeline(fn, plan, "cuda").cpu().double()
+    ns_per_cycle = float(((t[:, 13] - t[:, 14]) / (t[:, 6] - t[:, 0])).median())
+    phases = {name: float((t[:, b] - t[:, a]).median()) * ns_per_cycle / 1e3
+              for name, a, b in TIMELINE[backward]}
+    starts = (t[:, 14] - t[:, 14].min()) / 1e3
+    span = float((t[:, 13].max() - t[:, 14].min()) / 1e3)
+    print("  block phases, median us: " + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+          + f"; blocks start at {[round(float(q), 2) for q in starts.quantile(torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64))]} us "
+          f"(min, median, max), the launch spans {span:.2f} us", flush=True)
+
+
 def check_kernel(sites) -> dict:
     """Phase 3. Returns per-shape times and the largest error. Rows with
-    eps 1e-3 are per-image batch norm (Pix2Pix's predict)."""
+    eps 1e-3 are per-image batch norm (Pix2Pix's predict). plan: blocks per
+    cluster / channel tile / shared-memory bytes; share: bound over kernel
+    time; k/lib: kernel over library time."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = sorted(set(sites))
     times, worst = {}, 0.0
+    print(L2_NOTE)
     print(f"{'N,H,W,C':>18} {'dtype':>9} {'act':>10} {'eps':>6} {'max_abs_err':>12} "
-          f"{'tol(atol,rtol)':>16} {'kernel_us':>10} {'plain_us':>10} {'library_us':>10} "
-          f"{'bound_us':>9}")
+          f"{'tol(atol,rtol)':>16} {'plan':>14} {'kernel_us':>10} {'plain_us':>10} "
+          f"{'library_us':>10} {'bound_us':>9} {'share':>7} {'k/lib':>6}")
     for hw, c in shapes:
         for dtype in (torch.float32, torch.bfloat16):
+            plan = kernels.norm_plan(BATCH, hw * hw, c, dtype)
             for act, eps in [(act, norm.IN_EPS) for act in norm.ACTS] + [(None, norm.BN_EPS)]:
                 x = (torch.randn(BATCH, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
                 scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
@@ -285,8 +375,13 @@ def check_kernel(sites) -> dict:
                 b_ms, _ = bound_ms(2 * x.numel() * x.element_size())
                 times[(hw, c, dtype, act, eps)] = (k_ms, p_ms, lib_ms, b_ms)
                 print(f"{f'{BATCH},{hw},{hw},{c}':>18} {str(dtype)[6:]:>9} {str(act):>10} "
-                      f"{eps:>6g} {err:>12.3e} {f'{atol:g},{rtol:g}':>16} {k_ms * 1e3:>10.2f} "
-                      f"{p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f}", flush=True)
+                      f"{eps:>6g} {err:>12.3e} {f'{atol:g},{rtol:g}':>16} {_plan_str(plan):>14} "
+                      f"{k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} "
+                      f"{b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} {k_ms / lib_ms:>6.2f}", flush=True)
+    hw, c = max(shapes, key=lambda s: s[0] * s[0] * s[1])
+    print_max_clusters(BATCH, hw, c, backward=False)
+    print(f"plans at {BATCH},{hw},{hw},{c} bf16, K1:")
+    plan_sweep(BATCH, hw, c, backward=False)
     return {"times": times, "max_abs_err": worst}
 
 
@@ -349,15 +444,17 @@ def check_stem() -> dict:
 
 def check_backward(shapes) -> dict:
     """Phase 6: K2 (and K1) against the plain versions at batch 8. Returns
-    per-shape K2 times and the largest error."""
+    per-shape K2 times and the largest error. Columns as in phase 3."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     times, worst = {}, 0.0
+    print(L2_NOTE)
     print(f"{'N,H,W,C':>18} {'dtype':>9} {'dx_err':>10} {'dscale_err':>10} {'doffset_err':>11}"
-          f" {'tol(dx;sums)':>20} {'k1_err':>9} {'kernel_us':>10} {'plain_us':>10}"
-          f" {'library_us':>10} {'bound_us':>9}")
+          f" {'tol(dx;sums)':>20} {'k1_err':>9} {'plan':>14} {'kernel_us':>10} {'plain_us':>10}"
+          f" {'library_us':>10} {'bound_us':>9} {'share':>7} {'k/lib':>6}")
     for hw, c in shapes:
         shape = (TRAIN_BATCH, hw, hw, c)
         for dtype in (torch.float32, torch.bfloat16):
+            plan = kernels.norm_plan(TRAIN_BATCH, hw * hw, c, dtype, backward=True)
             x = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
             scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
             offset = 0.1 * torch.randn(c, device="cuda", generator=g)
@@ -383,8 +480,13 @@ def check_backward(shapes) -> dict:
             times[(hw, c, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
             print(f"{','.join(map(str, shape)):>18} {str(dtype)[6:]:>9} {errs[0]:>10.3e} "
                   f"{errs[1]:>10.3e} {errs[2]:>11.3e} {f'{atol:g},{rtol:g};{s_tol:.3g}':>20} "
-                  f"{k1_err:>9.2e} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} "
-                  f"{b_ms * 1e3:>9.2f}", flush=True)
+                  f"{k1_err:>9.2e} {_plan_str(plan):>14} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} "
+                  f"{lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} "
+                  f"{k_ms / lib_ms:>6.2f}", flush=True)
+    hw, c = max(shapes, key=lambda s: s[0] * s[0] * s[1])
+    print_max_clusters(TRAIN_BATCH, hw, c, backward=True)
+    print(f"plans at {TRAIN_BATCH},{hw},{hw},{c} bf16, K2:")
+    plan_sweep(TRAIN_BATCH, hw, c, backward=True)
     return {"times": times, "max_abs_err": worst}
 
 
@@ -848,12 +950,13 @@ def main() -> int:
                for i in range(4)]
     print(f"14 sites of one bf16 generator pass at batch {BATCH}: kernel {k1_pass[0] * 1e3:.2f} us, "
           f"plain {k1_pass[1] * 1e3:.2f} us, F.instance_norm {k1_pass[2] * 1e3:.2f} us, "
-          f"bound {k1_pass[3] * 1e3:.2f} us")
+          f"bound {k1_pass[3] * 1e3:.2f} us; share of bound {k1_pass[3] / k1_pass[0]:.1%}, "
+          f"kernel/library {k1_pass[0] / k1_pass[2]:.2f}")
     for act in ("leaky_relu", "relu"):
         t = k["times"][(128, 64, torch.bfloat16, act, norm.IN_EPS)]
         print(f"K3 ({act} epilogue) at 128²×64, bf16, batch {BATCH}: kernel {t[0] * 1e3:.2f} us, "
               f"plain {t[1] * 1e3:.2f} us, library (norm, then activation: two calls) "
-              f"{t[2] * 1e3:.2f} us, bound {t[3] * 1e3:.2f} us")
+              f"{t[2] * 1e3:.2f} us, bound {t[3] * 1e3:.2f} us; kernel/library {t[0] / t[2]:.2f}")
 
     phase(f"4. stem kernel (S) vs plain, every stem shape at {IMG_SIZE}²")
     s = check_stem()
@@ -886,7 +989,9 @@ def main() -> int:
                for i in range(4)]
     print(f"{len(step_sites)} sites of one bf16 generator and one discriminator backward at batch "
           f"{TRAIN_BATCH}: kernel {k2_pass[0] * 1e3:.2f} us, plain {k2_pass[1] * 1e3:.2f} us, "
-          f"F.instance_norm backward {k2_pass[2] * 1e3:.2f} us, bound {k2_pass[3] * 1e3:.2f} us")
+          f"F.instance_norm backward {k2_pass[2] * 1e3:.2f} us, bound {k2_pass[3] * 1e3:.2f} us; "
+          f"share of bound {k2_pass[3] / k2_pass[0]:.1%}, kernel/library "
+          f"{k2_pass[0] / k2_pass[2]:.2f}")
 
     phase(f"7. CycleGAN training slice: fit at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}")
     with tempfile.TemporaryDirectory() as tmp:

@@ -13,6 +13,10 @@ and LeakyReLU of every network's first block. ``stem_conv`` launches it; its
 gradient (``StemConvFunction``) masks dy with the LeakyReLU's slope and hands
 the conv's dx and dw to cuDNN, as XLA took them for gan_tpu.
 
+K1 and K2 split H·W over a thread-block cluster; :func:`norm_plan` chooses
+the geometry of each launch from the shape, and the kernels take it as
+arguments (the CPU tests hold it at every site of the paths).
+
 On a CPU tensor the wrappers run the plain versions in
 :mod:`gan_tpu_torch.ops.norm` and :mod:`gan_tpu_torch.ops.conv`. On CUDA they
 launch the kernel or raise; nothing falls back. ``LAUNCHES`` counts kernel
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +42,16 @@ _ACTS = {None: 0, "leaky_relu": 1, "relu": 2}
 STEM_CHANNELS = (1, 2, 3, 6)   # C_in of the stems: 1 or 3 channels, doubled by Pix2Pix's D
 STEM_FILTERS = 64
 
+# K1/K2 launch geometry; csrc/instance_norm.cu holds the same constants
+MAX_THREADS = 256         # threads per block; small bands take fewer
+MAX_CLUSTER = 16          # blocks per cluster; above 8 is non-portable
+PORTABLE_CLUSTER = 8
+MAX_SMEM = 232_448        # dynamic shared memory a block may use on Hopper (227 KB)
+SMEM_BUDGET = MAX_SMEM // 2 - 1024   # two blocks to an SM (the system keeps 1 KB per block)
+TARGET_BLOCKS = 256       # about two blocks per SM of the H100's 132
+MIN_BAND_BYTES = 16_384   # split H·W no finer than this per block
+MIN_SEG_BYTES = 64        # narrow a channel tile no further than 64-byte rows
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -48,13 +63,153 @@ def _lib() -> ctypes.CDLL:
     path, _ = build.build()
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gan_instance_norm_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
+    plan = [i] * 7   # threads, k, channel tile, rows, vec, staged, smem bytes
+    lib.gan_instance_norm_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, *plan, p]
     lib.gan_instance_norm_fwd.restype = i
-    lib.gan_instance_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+    lib.gan_instance_norm_bwd.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i, *plan, p]
     lib.gan_instance_norm_bwd.restype = i
+    lib.gan_instance_norm_max_clusters.argtypes = [i] * 9
+    lib.gan_instance_norm_max_clusters.restype = i
+    lib.gan_instance_norm_trace.argtypes = [p]
+    lib.gan_instance_norm_trace.restype = i
     lib.gan_stem_conv.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.gan_stem_conv.restype = i
     return lib
+
+
+class NormPlan(NamedTuple):
+    """Geometry of one K1 or K2 launch. A cluster of ``k`` blocks owns one
+    (sample, tile of ``channel_tile`` channels); each block holds a band of
+    ``rows_per_block`` rows of H·W with ``threads`` threads, loads ``vec``
+    channels at a time (16 bytes, or 1 where C is not a multiple of that),
+    and stages ``staged`` tensors' bands in ``smem_bytes`` of dynamic shared
+    memory (K1: x; K2: x, and dy where both fit)."""
+    k: int
+    channel_tile: int
+    rows_per_block: int
+    smem_bytes: int
+    vec: int
+    staged: int
+    threads: int
+    tiles: int
+    blocks: int
+
+    @property
+    def portable(self) -> bool:
+        return self.k <= PORTABLE_CLUSTER
+
+
+def _plan_smem(backward: bool, threads: int, k: int, ct: int, rows: int, staged: int,
+               elt: int) -> int:
+    """Bytes of csrc/instance_norm.cu's layout: the staged bands, then, in
+    fp32 and ct wide, two rows per warp and a row per block of the cluster
+    per sum exchanged (2, or 4 in K2)."""
+    return staged * rows * ct * elt + 4 * (2 * (threads // 32) + (4 if backward else 2) * k) * ct
+
+
+def _threads(rows: int, lanes: int) -> int:
+    """One row of the band per row thread where it has few rows, in whole
+    warps, at most MAX_THREADS."""
+    return min(MAX_THREADS, max(32, 1 << (rows * lanes - 1).bit_length()))
+
+
+def make_plan(n: int, hw: int, c: int, dtype: torch.dtype, k: int, ct: int, vec: int, *,
+              backward: bool = False) -> NormPlan:
+    """The plan of ``k`` blocks per cluster and ``ct``-channel tiles: rows
+    per band, and what is staged in shared memory (none where ``vec`` is 1:
+    cp.async copies 16 bytes). K2 stages dy's band beside x's where both fit
+    in SMEM_BUDGET, else x's alone."""
+    elt = torch.finfo(dtype).bits // 8
+    rows = -(-hw // k)
+    threads = _threads(rows, ct // vec)
+    staged = 0
+    if vec > 1:
+        limits = ((2, SMEM_BUDGET), (1, MAX_SMEM)) if backward else ((1, MAX_SMEM),)
+        staged = next((s for s, limit in limits
+                       if _plan_smem(backward, threads, k, ct, rows, s, elt) <= limit), 0)
+    tiles = -(-c // ct)
+    return NormPlan(k, ct, rows, _plan_smem(backward, threads, k, ct, rows, staged, elt), vec,
+                    staged, threads, tiles, n * tiles * k)
+
+
+@functools.cache
+def norm_plan(n: int, hw: int, c: int, dtype: torch.dtype, *, backward: bool = False,
+              aligned: bool = True) -> NormPlan:
+    """The launch geometry of K1 (or K2, ``backward``) on an (n, H·W, c)
+    tensor. Channel tiles start as 128-byte row segments (all of C where C
+    is narrower). While the launch has fewer than TARGET_BLOCKS blocks, it
+    splits H·W over up to 8 blocks, then narrows the tiles to 64-byte rows,
+    then splits up to 16, keeping bands of at least MIN_BAND_BYTES; then it
+    splits or narrows further until x's band fits in SMEM_BUDGET, two blocks
+    to an SM. K2 takes K1's geometry, so its statistics are the forward's
+    bit for bit. ``aligned``: every tensor's address is a multiple of 16
+    bytes."""
+    elt = torch.finfo(dtype).bits // 8
+    wide = 16 // elt
+    vec = wide if aligned and c % wide == 0 else 1
+    ct = 32 if vec == 1 else min(128 // elt, vec * (1 << (c // vec - 1).bit_length()))
+
+    def band(k_, ct_):
+        return -(-hw // k_) * ct_ * elt
+
+    def narrower(ct_):   # a halved tile that still loads 16 bytes and adds tiles
+        return (vec > 1 and ct_ * elt > MIN_SEG_BYTES and ct_ // 2 >= vec
+                and -(-c // (ct_ // 2)) > -(-c // ct_))
+
+    k = 1
+    while n * -(-c // ct) * k < TARGET_BLOCKS:
+        if k < PORTABLE_CLUSTER and band(2 * k, ct) >= MIN_BAND_BYTES:
+            k *= 2
+        elif narrower(ct) and band(k, ct // 2) >= MIN_BAND_BYTES:
+            ct //= 2
+        elif k < MAX_CLUSTER and band(2 * k, ct) >= MIN_BAND_BYTES:
+            k *= 2
+        else:
+            break
+    while vec > 1 and _plan_smem(False, MAX_THREADS, k, ct, -(-hw // k), 1, elt) > SMEM_BUDGET:
+        if k < MAX_CLUSTER:
+            k *= 2
+        elif narrower(ct):
+            ct //= 2
+        else:
+            break
+    return make_plan(n, hw, c, dtype, k, ct, vec, backward=backward)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def max_active_clusters(plan: NormPlan, n: int, c: int, dtype: torch.dtype,
+                        backward: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of a K1 (or K2) launch with ``plan``
+    on the current card."""
+    got = _lib().gan_instance_norm_max_clusters(int(backward), n, c, _DTYPES[dtype], plan.threads,
+                                                plan.k, plan.channel_tile, plan.vec,
+                                                plan.smem_bytes)
+    if got < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {-got} ({plan})")
+    return got
+
+
+def norm_timeline(fn, plan: NormPlan, device) -> torch.Tensor:
+    """Run ``fn`` (one K1 or K2 launch with ``plan``) with the kernels'
+    per-block timeline on: an int64 (blocks, 16) tensor of clock64() at
+    csrc/instance_norm.cu's trace points, the global timer (ns) at the start
+    (column 14) and end (13), and the SM (15)."""
+    def trace(ptr):
+        err = _lib().gan_instance_norm_trace(ptr)
+        if err != 0:
+            raise RuntimeError(f"setting the instance_norm timeline failed: cudaError {err}")
+
+    buf = torch.zeros((plan.blocks, 16), dtype=torch.int64, device=device)
+    trace(buf.data_ptr())
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+    finally:
+        trace(None)
+    return buf
 
 
 def _check_x(x: torch.Tensor) -> None:
@@ -80,16 +235,23 @@ def _check_channel_params(x: torch.Tensor, **params: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _launch_fwd(x, scale, offset, act, eps) -> torch.Tensor:
+def _plan_args(plan: NormPlan) -> tuple[int, ...]:
+    return (plan.threads, plan.k, plan.channel_tile, plan.rows_per_block, plan.vec, plan.staged,
+            plan.smem_bytes)
+
+
+def _launch_fwd(x, scale, offset, act, eps, plan: NormPlan | None = None) -> torch.Tensor:
+    """K1; ``plan`` overrides :func:`norm_plan` (for measuring other plans)."""
     n, h, w, c = x.shape
     y = torch.empty_like(x)
+    plan = plan or norm_plan(n, h * w, c, x.dtype, aligned=_aligned(x))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().gan_instance_norm_fwd(
             x.data_ptr(), scale.data_ptr(), offset.data_ptr(), y.data_ptr(),
-            n, h * w, c, eps, _ACTS[act], _DTYPES[x.dtype], stream)
+            n, h * w, c, eps, _ACTS[act], _DTYPES[x.dtype], *_plan_args(plan), stream)
     if err != 0:
-        raise RuntimeError(f"instance_norm kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"instance_norm kernel launch failed: cudaError {err} ({plan})")
     LAUNCHES["instance_norm_fwd"] += 1
     return y
 
@@ -148,21 +310,26 @@ def instance_norm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tenso
                         f"x is {x.dtype} {tuple(x.shape)} on {x.device}")
     if x.device.type == "cpu":
         return norm.instance_norm_backward(x, scale, dy, eps=eps)
-    dy = dy.contiguous()
+    return _launch_bwd(x, scale, dy.contiguous(), eps)
+
+
+def _launch_bwd(x, scale, dy, eps, plan: NormPlan | None = None):
+    """K2; ``plan`` overrides :func:`norm_plan` (for measuring other plans)."""
     n, h, w, c = x.shape
     dx = torch.empty_like(x)
-    dscale_part = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    doffset_part = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    parts = torch.empty((2, n, c), dtype=torch.float32, device=x.device)   # dscale, doffset
+    plan = plan or norm_plan(n, h * w, c, x.dtype, backward=True, aligned=_aligned(x, dy))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().gan_instance_norm_bwd(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dscale_part.data_ptr(), doffset_part.data_ptr(),
-            n, h * w, c, eps, _DTYPES[x.dtype], stream)
+            parts[0].data_ptr(), parts[1].data_ptr(),
+            n, h * w, c, eps, _DTYPES[x.dtype], *_plan_args(plan), stream)
     if err != 0:
-        raise RuntimeError(f"instance_norm backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"instance_norm backward kernel launch failed: cudaError {err} ({plan})")
     LAUNCHES["instance_norm_bwd"] += 1
-    return dx, dscale_part.sum(dim=0), doffset_part.sum(dim=0)
+    dscale, doffset = parts.sum(dim=1)   # one reduction over N for both
+    return dx, dscale, doffset
 
 
 def _check_stem(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> None:

@@ -1,9 +1,10 @@
 """The kernel wrappers: on a CPU tensor they run the plain versions; on the
 card (``-m cuda``) the CUDA kernels, K1 forward (also with batch norm's
 epsilon, as per-image batch norm runs it) and K2 backward, are held against
-the plain versions at the generator's shapes and the PatchGAN's 31² site, and
-the stem kernel S, forward and backward, at every C_in it takes. This file
-imports no jax, so it also runs where jax is absent:
+the plain versions at the generator's shapes, the PatchGAN's 31² site and
+the edges of their cluster plans, and rerun bit for bit; the stem kernel S,
+forward and backward, at every C_in it takes. This file imports no jax, so
+it also runs where jax is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -15,8 +16,14 @@ import torch
 from gan_tpu_torch.ops import conv, kernels, norm
 from torch_inputs import norm_inputs
 
-# fp32: Welford (kernel) vs two-pass (plain) fp32 sums
+# fp32: the kernel's per-band two-pass sums merged with Chan's formula vs
+# the plain version's two-pass sums
 NORM_ATOL = 2e-5
+# K1's and K2's cluster plans at their edges: one sample at the largest site
+# (16 blocks in one cluster), 31² rows that no band size divides, C = 3 (one
+# channel per load), C = 80 (a channel tile with a ragged tail) split over a
+# cluster of 8
+EDGE_SHAPES = [(1, 128, 128, 64), (2, 31, 31, 512), (2, 8, 8, 3), (2, 32, 32, 80)]
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():
@@ -39,7 +46,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "leaky_relu", "relu"])
 @pytest.mark.parametrize("shape", [(16, 1, 1, 512), (16, 2, 2, 512), (4, 16, 16, 256),
-                                   (2, 128, 128, 64), (3, 3, 5, 80)])
+                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES])
 def test_instance_norm_kernel_matches_plain(cuda_device, shape, act, dtype):
     x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
     x = x.to(dtype)
@@ -85,11 +92,14 @@ def test_backward_wrapper_refuses_a_dy_unlike_x(case):
         kernels.instance_norm_backward(x, scale, dy)
 
 
-# K2 vs its plain version. dx, fp32: the same formula, Welford (kernel) vs
-# two-pass (plain) statistics and sums in other orders; bf16: the same bf16
+# K2 vs its plain version. dx, fp32: the same formula, per-band two-pass
+# statistics merged with Chan's formula (kernel) vs two-pass (plain), and
+# sums in other orders; bf16: the same bf16
 # x and dy and fp32 math, dx's one rounding may land one ulp apart. dscale
-# and doffset: fp32 sums over N·H·W terms, each thread's share summed in
-# order, so the error grows with the count (1e-7 per term, at least 1e-5).
+# and doffset: fp32 sums over N·H·W terms. Each thread sums its rows of a
+# band in order (at most H·W/32 terms), then trees over the block, the
+# cluster and N add them up, so the error grows no faster than with the
+# count (1e-7 per term, at least 1e-5).
 DX_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}   # (atol, rtol)
 
 
@@ -100,7 +110,7 @@ def sums_tol(shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 1, 1, 512), (16, 2, 2, 512), (4, 16, 16, 256),
-                                   (2, 128, 128, 64), (3, 3, 5, 80), (2, 31, 31, 512)])
+                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES])
 def test_instance_norm_backward_kernel_matches_plain(cuda_device, shape, dtype):
     x, scale, _ = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
     x = x.to(dtype)
@@ -116,6 +126,51 @@ def test_instance_norm_backward_kernel_matches_plain(cuda_device, shape, dtype):
     torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, atol=sums_tol(shape), rtol=1e-5)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor whose address is one element
+    past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_kernels_on_a_misaligned_tensor(cuda_device, dtype):
+    """An address off the 16-byte grid takes the one-channel loads, unstaged;
+    K1 and K2 still match the plain versions."""
+    shape = (2, 64, 64, 64)
+    x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
+    x = _misaligned(x.to(dtype))
+    dy = _misaligned(torch.randn(shape, device=cuda_device).to(dtype))
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    atol, rtol = DX_TOL[dtype]
+    got = kernels.instance_norm(x, scale, offset)
+    torch.testing.assert_close(got.float(), norm.instance_norm(x, scale, offset).float(),
+                               atol=atol, rtol=rtol)
+    got = kernels.instance_norm_backward(x, scale, dy)
+    want = norm.instance_norm_backward(x, scale, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=sums_tol(shape), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 64), (8, 31, 31, 512), (2, 32, 32, 80)])
+def test_instance_norm_kernels_rerun_bit_identical(cuda_device, shape, dtype):
+    """Two launches on the same input give the same bits: K1's y, and K2's
+    dx, dscale and doffset (the cluster merges in rank order, no atomics)."""
+    x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
+    x = x.to(dtype)
+    dy = torch.randn(shape, device=cuda_device).to(dtype)
+    runs = [(kernels.instance_norm(x, scale, offset, act="leaky_relu"),
+             *kernels.instance_norm_backward(x, scale, dy)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
