@@ -20,10 +20,15 @@ Phases, each printed; any failure raises and the script exits non-zero:
    chosen plan against other geometries, and the chosen plan's per-block
    timeline;
 4. the stem kernel (S) against its plain version at every stem shape the
-   paths run, in fp32 and bf16, with the device time of both, of the library
-   pair ``F.conv2d`` + ``F.leaky_relu`` and the bound; its backward (dx and
-   dw through cuDNN) against autograd of the plain version at the training
-   shapes;
+   paths run, in fp32 (CUDA cores) and bf16 (tensor cores), with each
+   launch's plan, the device time of both, of the library pair ``F.conv2d``
+   + ``F.leaky_relu`` and the bound, the share of the bound and the
+   kernel/library ratio; its backward (dx and dw through cuDNN) against
+   autograd of the plain version at the training shapes; first the count of
+   HMMA instructions in each stem kernel's SASS (``cuobjdump``), which must
+   not be 0 for the bf16 route. The phase runs alone as
+   ``python3 -c "import chip_smoke as c; c.tf32_off(); c.build.build();
+   c.check_stem()"``;
 5. the CycleGAN predict slice: the port's CycleGAN trainer at 256², depth 8,
    bf16, from seeded random weights, saved and restored through its
    checkpoint manager as ``--predict`` does, runs ``generate_batched`` on 32
@@ -389,16 +394,50 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
+def stem_hmma_counts() -> dict:
+    """HMMA (tensor-core) instructions per stem kernel in the SASS of the
+    built library (``cuobjdump --dump-sass``), by mangled symbol: the bf16
+    route's ``stem_conv_mma_kernel`` instances and the fp32 route's
+    ``stem_conv_kernel``."""
+    path, _ = build.build()
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "--dump-sass", path],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            if "stem_conv" in current:
+                counts[current] = 0
+        elif current in counts and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def _stem_plan_str(plan) -> str:
+    """rows/warps/pitch/load width/shared bytes"""
+    return f"{plan.rows_per_block}/{plan.warps}/{plan.pitch}/{plan.vec}/{plan.smem_bytes}"
+
+
 def check_stem() -> dict:
     """Phase 4: S against its plain version at every stem shape of the
-    paths, forward in both dtypes and backward at the training shapes.
+    paths, forward in both dtypes and backward at the training shapes, with
+    each launch's plan (rows/warps/pitch/vec/shared bytes), the share of
+    the bound and the kernel/library ratio; first the HMMA count of each
+    stem kernel's SASS (the bf16 route must have tensor-core instructions).
     Returns per-shape (kernel, plain, library, bound) times, bound kinds and
     the largest forward error."""
+    hmma = stem_hmma_counts()
+    for sym, count in sorted(hmma.items()):
+        print(f"HMMA instructions in the SASS of {sym}: {count}")
+    mma = {sym: c for sym, c in hmma.items() if "stem_conv_mma_kernel" in sym}
+    if len(mma) != len(kernels.STEM_CHANNELS) or not all(mma.values()):
+        raise AssertionError(f"the bf16 stem kernels have no tensor-core instructions: {hmma}")
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     times, bound_by, worst = {}, {}, 0.0
+    print(L2_NOTE)
     print(f"{'N,H,W,C_in':>16} {'dtype':>9} {'max_abs_err':>12} {'tol(atol,rtol)':>20} "
-          f"{'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9} "
-          f"{'dx_rel':>9} {'dw_rel':>9}  path")
+          f"{'plan':>22} {'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9} "
+          f"{'share':>7} {'k/lib':>6} {'dx_rel':>9} {'dw_rel':>9}  path")
     for (n, c_in), use in STEM_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.rand(n, IMG_SIZE, IMG_SIZE, c_in, device="cuda", generator=g) * 2 - 1).to(dtype)
@@ -435,9 +474,11 @@ def check_stem() -> dict:
             b_ms, by = bound_ms(nbytes, 2.0 * got.numel() * 16 * c_in, dtype)
             times[(n, c_in, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
             bound_by[(n, c_in, dtype)] = by
+            plan = kernels.stem_plan(n, IMG_SIZE, IMG_SIZE, c_in, dtype)
             print(f"{f'{n},{IMG_SIZE},{IMG_SIZE},{c_in}':>16} {str(dtype)[6:]:>9} {err:>12.3e} "
-                  f"{f'{atol:g},{rtol:g}':>20} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} "
-                  f"{lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} {grads[0]:>9} {grads[1]:>9}  "
+                  f"{f'{atol:g},{rtol:g}':>20} {_stem_plan_str(plan):>22} {k_ms * 1e3:>10.2f} "
+                  f"{p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} "
+                  f"{b_ms / k_ms:>7.1%} {k_ms / lib_ms:>6.2f} {grads[0]:>9} {grads[1]:>9}  "
                   f"{use} (bound by {by})", flush=True)
     return {"times": times, "bound_by": bound_by, "max_abs_err": worst}
 
@@ -523,7 +564,7 @@ def plain_path(label: str):
 
 
 # kernel groups of the profile, by substring of the kernel name; first match wins
-_GROUPS = (("stem conv (CUDA kernel S)", ("stem_conv_kernel",)),
+_GROUPS = (("stem conv (CUDA kernel S)", ("stem_conv_kernel", "stem_conv_mma_kernel")),
            ("instance norm forward (CUDA kernel K1)", ("instance_norm_fwd_kernel",)),
            ("instance norm backward (CUDA kernel K2)", ("instance_norm_bwd_kernel",)),
            ("batch norm (PyTorch's kernels)", ("batch_norm", "bn_fw", "bn_bw", "welford")),
@@ -921,6 +962,13 @@ def run_pix2pix_training(tmp: str) -> dict:
     return launches
 
 
+def tf32_off() -> None:
+    """fp32 convs and matmuls in full fp32, for the fp32 comparisons."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -931,9 +979,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"nvidia-smi: {smi}\ntorch: {torch.__version__} CUDA {torch.version.cuda}, "
           f"device {kind}, count {torch.cuda.device_count()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    tf32_off()
 
     phase("2. build")
     path, seconds = build.build()
@@ -970,7 +1016,8 @@ def main() -> int:
     s_by = max(by_kind, key=by_kind.get)
     print(f"the 3 stems of one bf16 Pix2Pix train step at batch {P2P_BATCH}: kernel "
           f"{s_step[0] * 1e3:.2f} us, plain {s_step[1] * 1e3:.2f} us, F.conv2d + F.leaky_relu "
-          f"{s_step[2] * 1e3:.2f} us, bound {s_step[3] * 1e3:.2f} us (by {s_by})")
+          f"{s_step[2] * 1e3:.2f} us, bound {s_step[3] * 1e3:.2f} us (by {s_by}); share of "
+          f"bound {s_step[3] / s_step[0]:.1%}, kernel/library {s_step[0] / s_step[2]:.2f}")
 
     launches = {}
 

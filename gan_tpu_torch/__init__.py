@@ -1,11 +1,13 @@
 """gan_tpu_torch — the PyTorch / CUDA port of gan_tpu, for NVIDIA Hopper.
 
 It sits beside ``gan_tpu`` (the JAX reference it is held against) and mirrors
-its layout: ``ops`` (convs, instance norm and its CUDA kernel), ``models``,
-``data``, ``train``, ``utils``, ``config`` and the ``cycle_gan`` CLI. It imports
-torch and never jax, and nothing of ``gan_tpu``.
+its layout: ``ops`` (convs, norms and the CUDA kernels' wrappers), ``models``,
+``data``, ``train``, ``utils``, ``config`` and the ``pix2pix`` and ``cycle_gan``
+CLIs. It imports torch and never jax, and nothing of ``gan_tpu``.
 
-It runs CycleGAN ``--train`` and ``--predict``; Pix2Pix is not ported yet.
+It runs Pix2Pix and CycleGAN, ``--train`` and ``--predict``. Its CUDA kernels
+are in ``csrc/``: the instance norm's forward and backward, and the fused
+stem conv.
 """
 
 __version__ = "0.1.0"

@@ -108,10 +108,15 @@ class CycleGANConfig(BaseConfig):
 
 
 def refuse_unported(cfg: BaseConfig) -> None:
-    """Exit when --train asks for a path that is not ported yet."""
+    """Exit when --train asks for a path that is not ported yet. The port
+    decodes the whole corpus into host memory and keeps it on the card, so
+    ``--host-cache off`` (gan_tpu streams from files) and ``--device-cache
+    off`` would be ignored; ``auto`` and ``on`` are what the port does."""
     unported = [flag for flag, on in (("--resume", cfg.resume),
                                       ("--checkpoint-every", cfg.checkpoint_every),
-                                      ("--num-devices > 1", cfg.num_devices > 1)) if on]
+                                      ("--num-devices > 1", cfg.num_devices > 1),
+                                      ("--host-cache off", cfg.host_cache == "off"),
+                                      ("--device-cache off", cfg.device_cache == "off")) if on]
     if cfg.train and unported:
         raise SystemExit(f"gan_tpu_torch: {', '.join(unported)} with --train is not "
                          "ported yet; train with gan_tpu's CLI or drop the flag")
@@ -146,7 +151,8 @@ def _add_common(p: argparse.ArgumentParser, argv) -> None:
     p.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"],
                    help="compute dtype on device (params stay fp32)")
     p.add_argument("--device-cache", type=str, default="auto", choices=["auto", "on", "off"],
-                   help="gan_tpu training flag; parsed, unused by the port")
+                   help="where the training caches live; the port keeps them on the "
+                        "device (off is refused with --train)")
     p.add_argument("--bn-cross-replica", type=str, default="false", choices=["true", "false"],
                    help="gan_tpu training flag; parsed, unused by the port")
     p.add_argument("--resume", type=str, default=None,
@@ -161,7 +167,8 @@ def _add_common(p: argparse.ArgumentParser, argv) -> None:
     p.add_argument("--remat", type=str, default="auto", choices=["auto", "on", "off"],
                    help="gan_tpu training flag; parsed, unused by the port")
     p.add_argument("--host-cache", type=str, default="auto", choices=["auto", "on", "off"],
-                   help="gan_tpu data flag; parsed, unused by the port")
+                   help="host-RAM data cache; the port always decodes into RAM "
+                        "(off is refused with --train)")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="gan_tpu training flag; parsed, unused by the port")
 

@@ -27,11 +27,12 @@ def sources() -> list[str]:
                   if f.endswith((".cu", ".cuh")))
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("CUDA toolkit not found: set CUDA_HOME or put nvcc on PATH")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+    return os.path.join(CUDA_HOME, "bin", name)
 
 
 def library_path() -> str:
@@ -57,7 +58,7 @@ def build() -> tuple[str, float]:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, *cu],
                               capture_output=True, text=True)
         with open(path + ".log", "w") as f:
             f.write(proc.stdout + proc.stderr)

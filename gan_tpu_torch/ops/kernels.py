@@ -9,13 +9,15 @@ whose backward launches K2 (``instance_norm_backward``), as gan_tpu's
 
 ``gan_tpu_torch/csrc/stem_conv.cu`` holds the CUDA port of
 benchmarks/pallas_stem_proto.py:_stem_kernel (S), the fused 4x4 stride-2 conv
-and LeakyReLU of every network's first block. ``stem_conv`` launches it; its
-gradient (``StemConvFunction``) masks dy with the LeakyReLU's slope and hands
-the conv's dx and dw to cuDNN, as XLA took them for gan_tpu.
+and LeakyReLU of every network's first block: in bf16 an implicit GEMM on the
+tensor cores (``mma.sync``), in fp32 on the CUDA cores. ``stem_conv``
+launches it; its gradient (``StemConvFunction``) masks dy with the LeakyReLU's
+slope and hands the conv's dx and dw to cuDNN, as XLA took them for gan_tpu.
 
 K1 and K2 split H·W over a thread-block cluster; :func:`norm_plan` chooses
-the geometry of each launch from the shape, and the kernels take it as
-arguments (the CPU tests hold it at every site of the paths).
+the geometry of each launch from the shape, and :func:`stem_plan` S's; the
+kernels take it as arguments (the CPU tests hold both at every site of the
+paths).
 
 On a CPU tensor the wrappers run the plain versions in
 :mod:`gan_tpu_torch.ops.norm` and :mod:`gan_tpu_torch.ops.conv`. On CUDA they
@@ -72,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     lib.gan_instance_norm_max_clusters.restype = i
     lib.gan_instance_norm_trace.argtypes = [p]
     lib.gan_instance_norm_trace.restype = i
-    lib.gan_stem_conv.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.gan_stem_conv.argtypes = [p, p, p, *[i] * 5, *[i] * 5, p]   # ..., c_in, dtype, plan
     lib.gan_stem_conv.restype = i
     return lib
 
@@ -332,6 +334,91 @@ def _launch_bwd(x, scale, dy, eps, plan: NormPlan | None = None):
     return dx, dscale, doffset
 
 
+# S's launch geometry; csrc/stem_conv.cu holds the same constants
+STEM_TILE = 16              # output pixels of a warp's M tile (m16n8k16), bf16
+STEM_BLOCK_PIXELS = 1024    # output pixels a bf16 block aims to own
+STEM_FP32_SMEM = 64 * 1024  # the fp32 kernel halves its 4 rows above this
+
+
+class StemPlan(NamedTuple):
+    """Geometry of one S launch: a block of ``warps`` warps owns
+    ``rows_per_block`` output rows of one sample, whose 2·rows + 2 staged
+    input rows lie ``pitch`` elements apart in ``smem_bytes`` of dynamic
+    shared memory; x is loaded ``vec`` elements at a time (bf16: 8 with
+    16-byte cp.async, or 2; fp32: 1). The grid is ``grid`` = (row blocks,
+    samples). bf16: the warps take turns at the ``STEM_TILE``-pixel M tiles
+    of the block's span, the last one masked where the span ends mid-tile."""
+    rows_per_block: int
+    warps: int
+    pitch: int
+    vec: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+
+def stem_lead(c_in: int) -> int:
+    """Element of padded column 0 in a staged bf16 row, such that the image's
+    first column lands on 16 bytes (csrc/stem_conv.cu:stem_lead)."""
+    return (8 - c_in % 8) % 8
+
+
+def _stem_smem(c_in: int, rows: int, pitch: int, warps: int, dtype: torch.dtype) -> int:
+    """Bytes of csrc/stem_conv.cu's layout. bf16: the B fragments, a 16-pixel
+    staging tile per warp, the staged rows. fp32: the weights and the rows."""
+    if dtype == torch.bfloat16:
+        return 2 * (16 * c_in * STEM_FILTERS + warps * STEM_TILE * STEM_FILTERS
+                    + (2 * rows + 2) * pitch)
+    return 4 * (16 * c_in * STEM_FILTERS + (2 * rows + 2) * pitch)
+
+
+def make_stem_plan(n: int, h: int, w: int, c_in: int, dtype: torch.dtype, rows: int,
+                   warps: int, *, aligned: bool = True) -> StemPlan:
+    """The plan of ``rows`` output rows and ``warps`` warps per block. bf16:
+    the row pitch is rounded up to 16 bytes and then to 32 words past a
+    multiple of 32, so the lanes that read window rows a and a + 1 fall in
+    different banks; x loads 16 bytes where each row's W·C_in elements are a
+    multiple of 8 and x is ``aligned`` on 16 bytes, else 4."""
+    ho = h // 2
+    rows = min(rows, ho)
+    grid = (-(-ho // rows), n)
+    if dtype == torch.float32:
+        pitch, vec = (w + 2) * c_in, 1
+    else:
+        pitch = -(-(stem_lead(c_in) + (w + 2) * c_in) // 8) * 8
+        pitch += (32 - pitch % 64) % 64
+        vec = 8 if aligned and (w * c_in) % 8 == 0 else 2
+    return StemPlan(rows, warps, pitch, vec, _stem_smem(c_in, rows, pitch, warps, dtype), grid)
+
+
+@functools.cache
+def stem_plan(n: int, h: int, w: int, c_in: int, dtype: torch.dtype, *,
+              aligned: bool = True) -> StemPlan:
+    """The launch geometry of S on an (n, h, w, c_in) input. bf16: rows of
+    about STEM_BLOCK_PIXELS output pixels (a power of two), halved while the
+    grid has fewer than TARGET_BLOCKS blocks, so that two blocks share an SM
+    and one's stores overlap another's staging, and while the block needs
+    more than half an SM's shared memory; at most 8 warps, and no more than
+    the block has tiles. Each block stages the weights and its rows once, so
+    larger blocks spend less on it. fp32: the CUDA-core kernel's 4 rows
+    and 8 warps, rows halved while it needs more than STEM_FP32_SMEM."""
+    ho, wo = h // 2, w // 2
+    if dtype == torch.float32:
+        rows = 4
+        while rows > 1 and _stem_smem(c_in, rows, (w + 2) * c_in, 8, dtype) > STEM_FP32_SMEM:
+            rows //= 2
+        return make_stem_plan(n, h, w, c_in, dtype, rows, MAX_THREADS // 32)
+    rows = min(ho, 1 << (max(1, STEM_BLOCK_PIXELS // wo).bit_length() - 1))
+
+    def plan(rows_):
+        warps = min(MAX_THREADS // 32, -(-(rows_ * wo) // STEM_TILE))
+        return make_stem_plan(n, h, w, c_in, dtype, rows_, warps, aligned=aligned)
+
+    while rows > 1 and (n * -(-ho // rows) < TARGET_BLOCKS
+                        or plan(rows).smem_bytes > SMEM_BUDGET):
+        rows = -(-rows // 2)
+    return plan(rows)
+
+
 def _check_stem(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> None:
     if x.dim() != 4 or x.shape[-1] not in STEM_CHANNELS:
         raise ValueError(f"stem_conv takes NHWC (N, H, W, C_in) with C_in in {STEM_CHANNELS}, "
@@ -351,17 +438,24 @@ def _check_stem(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> None:
                          f"got {x.device} and {w.device}")
 
 
-def _launch_stem(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _launch_stem(x: torch.Tensor, w: torch.Tensor, plan: StemPlan | None = None) -> torch.Tensor:
     """S on a contiguous NHWC ``x`` and an OIHW ``w`` of x's dtype in
-    channels-last memory, which is the OHWI array the kernel reads."""
+    channels-last memory, which is the OHWI array the kernel reads; ``plan``
+    overrides :func:`stem_plan` (for measuring other plans). The kernel
+    loads x and w in 4-byte words at least: a tensor off that grid (a view
+    one element in) is copied first."""
     n, h, wd, c = x.shape
+    x, w = (t if t.data_ptr() % 4 == 0 else t.clone(memory_format=torch.preserve_format)
+            for t in (x, w))
     y = torch.empty((n, h // 2, wd // 2, STEM_FILTERS), dtype=x.dtype, device=x.device)
+    plan = plan or stem_plan(n, h, wd, c, x.dtype, aligned=_aligned(x))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().gan_stem_conv(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c,
-                                   _DTYPES[x.dtype], stream)
+                                   _DTYPES[x.dtype], plan.rows_per_block, plan.warps,
+                                   plan.pitch, plan.vec, plan.smem_bytes, stream)
     if err != 0:
-        raise RuntimeError(f"stem_conv kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"stem_conv kernel launch failed: cudaError {err} ({plan})")
     LAUNCHES["stem_conv"] += 1
     return y
 

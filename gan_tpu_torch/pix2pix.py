@@ -14,12 +14,14 @@ and ``training_checkpoints/<epoch>/`` (the last one); in predict mode
 ``prediction_images/img{N}.png``. ``--weights`` points at a run (or
 ``training_checkpoints/``) holding the port's torch checkpoints.
 
-``--resume``, ``--checkpoint-every`` and ``--num-devices`` > 1 are not ported
-yet: with ``--train`` they exit with an error. ``--use-pallas``,
-``--host-cache``, ``--device-cache``, ``--remat`` and ``--bn-cross-replica``
-are parsed and written to config.json but change nothing here: the stems and
-the per-image batch norm always run the CUDA kernels on the card, and the
-caches always live on it.
+``--resume``, ``--checkpoint-every``, ``--num-devices`` > 1, ``--host-cache
+off`` and ``--device-cache off`` are not ported yet: with ``--train`` they
+exit with an error (the port decodes the whole corpus into host memory and
+keeps the caches on the card; gan_tpu streams from files under
+``--host-cache off``). ``--use-pallas``, ``--remat``, ``--bn-cross-replica``
+and the caches' ``auto`` and ``on`` are parsed and written to config.json but
+change nothing here: the stems and the per-image batch norm always run the
+CUDA kernels on the card.
 """
 
 from __future__ import annotations

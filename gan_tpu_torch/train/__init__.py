@@ -1,2 +1,3 @@
-"""Trainers and checkpoints. This slice holds the CycleGAN generators and
-their predict path; training is not ported yet."""
+"""Trainers and checkpoints: the Pix2Pix and CycleGAN trainers (``fit``, the
+train step, ``generate_batched`` for predict), their shared base, the
+epoch plans, Adam, and the torch checkpoint manager."""

@@ -3,8 +3,9 @@ card (``-m cuda``) the CUDA kernels, K1 forward (also with batch norm's
 epsilon, as per-image batch norm runs it) and K2 backward, are held against
 the plain versions at the generator's shapes, the PatchGAN's 31² site and
 the edges of their cluster plans, and rerun bit for bit; the stem kernel S,
-forward and backward, at every C_in it takes. This file imports no jax, so
-it also runs where jax is absent:
+forward and backward, at every C_in it takes, and its bf16 tensor-core route
+also on other launch plans, on a misaligned input and rerun bit for bit. This
+file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -228,7 +229,7 @@ def test_stem_wrapper_on_cpu_runs_the_plain_version():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c_in", kernels.STEM_CHANNELS)
-@pytest.mark.parametrize("nhw", [(2, 64, 64), (1, 256, 256), (3, 6, 10)])
+@pytest.mark.parametrize("nhw", [(2, 64, 64), (1, 256, 256), (3, 6, 10), (2, 10, 38)])
 def test_stem_kernel_matches_plain(cuda_device, nhw, c_in, dtype):
     torch.backends.cudnn.allow_tf32 = False
     x, w = _stem_inputs((*nhw, c_in), cuda_device)
@@ -257,3 +258,49 @@ def test_stem_autograd_matches_plain(cuda_device, c_in):
         grads.append(torch.autograd.grad(fn(*leaves, compute_dtype=torch.float32), leaves, dy))
     for g, want in zip(*grads):
         torch.testing.assert_close(g, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", kernels.STEM_CHANNELS)
+@pytest.mark.parametrize("rows,warps", [(1, 1), (3, 2), (8, 8), (5, 3)])
+def test_stem_bf16_kernel_on_other_plans_matches_plain(cuda_device, c_in, rows, warps):
+    """The tensor-core kernel on plans other than ``stem_plan``'s: blocks of
+    1 to 8 warps over 1 to 8 rows, so warps take several tiles, rows end
+    mid-tile and the last block is short (W_o = 19, H_o = 13)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = _stem_inputs((2, 26, 38, c_in), cuda_device)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    plan = kernels.make_stem_plan(2, 26, 38, c_in, torch.bfloat16, rows, warps)
+    got = kernels._launch_stem(x, w, plan=plan)
+    torch.cuda.synchronize()
+    atol, rtol = STEM_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), conv.stem_conv(x, w).float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", kernels.STEM_CHANNELS)
+def test_stem_bf16_kernel_on_a_misaligned_input(cuda_device, c_in):
+    """x 2 bytes off the 4-byte grid (copied by the wrapper) and 4 bytes off
+    the 16-byte grid (4-byte loads in place of cp.async)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = _stem_inputs((2, 16, 16, c_in), cuda_device)
+    x = x.to(torch.bfloat16)
+    want = conv.stem_conv(x, w, compute_dtype=torch.bfloat16).float()
+    atol, rtol = STEM_TOL[torch.bfloat16]
+    for shift in (1, 2):
+        buf = torch.empty(x.numel() + shift, dtype=x.dtype, device=cuda_device)
+        xm = buf[shift:].view(x.shape)
+        xm.copy_(x)
+        assert xm.data_ptr() % 16 and xm.is_contiguous()
+        got = kernels.stem_conv(xm, w, compute_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in", kernels.STEM_CHANNELS)
+def test_stem_bf16_kernel_reruns_bit_identical(cuda_device, c_in):
+    """No atomics: two launches give the same bits."""
+    x, w = _stem_inputs((4, 64, 64, c_in), cuda_device)
+    runs = [kernels.stem_conv(x, w, compute_dtype=torch.bfloat16) for _ in range(2)]
+    assert torch.equal(*runs)
+

@@ -22,8 +22,9 @@ from gan_tpu import config as jax_config
 from gan_tpu.data.augment import normalize_batch as jax_normalize_batch
 from gan_tpu.train.cyclegan_trainer import CycleGANTrainer as JaxTrainer
 import gan_tpu_torch.models.blocks as port_blocks
-from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan
+from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, parse_pix2pix, refuse_unported
 from gan_tpu_torch.cycle_gan import main as port_main
+from gan_tpu_torch.pix2pix import main as pix2pix_main
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 from gan_tpu_torch.transplant import params_to_state_dict
@@ -164,8 +165,13 @@ def test_checkpoint_manager_restore_creates_nothing(tmp_path):
         CheckpointManager(str(tmp_path), max_to_keep=0)
 
 
-@pytest.mark.parametrize("flags", [["--resume", "r"], ["--checkpoint-every", "2"],
-                                   ["--num-devices", "2"]], ids=lambda f: f[0])
+# the flags whose --train paths are not ported yet: the port keeps the whole
+# corpus in host memory and on the card, so the caches cannot be turned off
+UNPORTED_TRAIN_FLAGS = [["--resume", "r"], ["--checkpoint-every", "2"], ["--num-devices", "2"],
+                        ["--host-cache", "off"], ["--device-cache", "off"]]
+
+
+@pytest.mark.parametrize("flags", UNPORTED_TRAIN_FLAGS, ids=lambda f: f[0])
 def test_train_is_refused(tmp_path, flags):
     """--train runs, but not with the flags whose paths are not ported yet."""
     argv = ["--input-images", str(tmp_path), "--target-images", str(tmp_path), "--output",
@@ -173,3 +179,33 @@ def test_train_is_refused(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported"):
         port_main(parse_cyclegan(argv))
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flags", UNPORTED_TRAIN_FLAGS, ids=lambda f: f[0])
+def test_pix2pix_train_is_refused(tmp_path, flags):
+    argv = ["--data", str(tmp_path), "--output", str(tmp_path / "out"), "--train", "--epochs",
+            "1", "--img-size", "32", *flags]
+    with pytest.raises(SystemExit, match=f"{flags[0]}.* not ported"):
+        pix2pix_main(parse_pix2pix(argv))
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("value", ["auto", "on"])
+def test_train_takes_the_caches_on(value):
+    """``auto`` and ``on`` are what the port does, so --train takes them."""
+    for parse, first in ((parse_cyclegan, ["--input-images", "x", "--target-images", "y"]),
+                         (parse_pix2pix, ["--data", "d"])):
+        refuse_unported(parse([*first, "--output", "o", "--train", "--epochs", "1",
+                               "--host-cache", value, "--device-cache", value]))
+
+
+def test_predict_runs_with_the_caches_off(transplanted_run, tmp_path):
+    """The refusal is --train's alone: --predict with both caches off writes
+    its images."""
+    images, run, _ = transplanted_run
+    out = tmp_path / "out"
+    port_main(parse_cyclegan(_argv(str(images), str(out), str(run), "--host-cache", "off",
+                                   "--device-cache", "off")))
+    (run_dir,) = glob.glob(str(out / "*"))
+    names = os.listdir(os.path.join(run_dir, "prediction_images"))
+    assert sorted(names) == sorted(f"img{i}.png" for i in range(N_IMAGES))
