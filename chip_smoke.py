@@ -41,13 +41,22 @@ Phases, each printed; any failure raises and the script exits non-zero:
    same columns, plan sweep and timeline as phase 3;
 7. the CycleGAN training slice: ``CycleGANTrainer.fit`` for one epoch at
    256², depth 8, bf16, batch 8 on seeded uint8 caches (84 X and 88 Y
-   images of 286², 16 + 16 val), with K1, K2 and S launch counts derived from
-   the step's structure, a checkpoint round trip of all four networks and
-   Adams, and one step's losses and gradients through the kernels against
-   the same step on the plain path;
-8. the CycleGAN training numbers: the median step time, kernel and plain
-   path in alternating rounds, image-pairs/s, peak device memory, and a
-   torch.profiler breakdown of two steps with the card's idle share;
+   images of 286², 16 + 16 val): the full steps as CUDA-graph replays (each
+   runner's first step eager, as the capture's warm-up), the zip tail eager;
+   K1, K2 and S launches counted on the card (torch.profiler, by kernel
+   name) against the counts derived from the step's structure, the
+   wrappers' counts against the steps the host ran or captured, Adam's step
+   count against the steps trained, a checkpoint round trip of all four
+   networks and Adams, and one step's losses and gradients through the
+   kernels against the same step on the plain path;
+8. the CycleGAN training numbers: the median eager step time, kernel and
+   plain path in alternating rounds, image-pairs/s, peak device memory, and
+   a torch.profiler breakdown of two steps with the card's idle share;
+   8b. the graph step: two steps of the epoch runner (the second a replay)
+   against two eager steps from the same state and draws, then the graph
+   path's step time (an epoch of replays, in turns with the eager step),
+   image-pairs/s, device time, idle share and kernels per step beside the
+   eager paths', and the capture's seconds;
 9. the Pix2Pix predict slice: ``Pix2PixTrainer`` at 256², depth 8, bf16,
    seeded weights with non-zero batch-norm betas, restored through the
    checkpoint manager, ``generate_batched`` on 32 seeded uint8 images with
@@ -55,11 +64,14 @@ Phases, each printed; any failure raises and the script exits non-zero:
    against the plain path;
 10. the Pix2Pix training slice: ``Pix2PixTrainer.fit`` for one epoch at
     256², bf16, batch 32 (the README's Pix2Pix quick start) on seeded caches
-    of 261 train pairs at 286² (8 full steps and a 5-row remainder) and 40
-    val pairs (a full step and an 8-row remainder): 3 S launches per step
-    and no K1 or K2, finite losses, both networks changed, a checkpoint round
-    trip, and one step against the plain path;
-11. the Pix2Pix training numbers, as in phase 8.
+    of 261 train pairs at 286² (8 full steps as graph replays and a 5-row
+    remainder) and 40 val pairs (a full step and an 8-row remainder): 3 S
+    launches per step on the card and no K1 or K2, the counts as in phase 7,
+    finite losses, both networks changed, a checkpoint round trip, and one
+    step against the plain path;
+11. the Pix2Pix training numbers, as in phase 8, and 11b the graph step as
+    in 8b; then, not a gate, an epoch of 8 graph steps at bench.py's
+    per-chip batch of 128 with its image-pairs/s and peak memory.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. No PNGs are written.
@@ -68,6 +80,7 @@ and ``{"ok": true, "device": {...}}``. No PNGs are written.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -143,6 +156,8 @@ STEP_TOL = {"bf16": (2e-2, 2e-1), "fp32": (1e-4, 1e-2)}   # (losses, gradients)
 # bf16 against fp32: the kernel path's error at most this factor of the plain
 # path's, plus the slack (the two share the convs' bf16 rounding)
 BF16_FACTOR, BF16_SLACK = 1.5, 1e-3
+GRAPH_STEPS = 8     # graph replays per timed call of the graph path
+P2P_BENCH_BATCH = 128   # bench.py:80's per-chip Pix2Pix batch
 SOURCES = {"instance_norm_fwd": "gan_tpu_torch/csrc/instance_norm.cu",
            "instance_norm_bwd": "gan_tpu_torch/csrc/instance_norm.cu",
            "stem_conv": "gan_tpu_torch/csrc/stem_conv.cu"}
@@ -575,10 +590,11 @@ _GROUPS = (("stem conv (CUDA kernel S)", ("stem_conv_kernel", "stem_conv_mma_ker
             ("xmma", "cutlass", "cudnn", "conv", "Nhwc", "Nchw", "wgrad", "dgrad")))
 
 
-def profile_device(fn, calls: int) -> float:
-    """Device µs per call by kernel group, from a torch.profiler trace of
-    ``calls`` calls; prints the groups and the 8 longest kernels and returns
-    the summed kernel time per call."""
+def profile_device(fn, calls: int, steps: int = 1) -> tuple[float, float]:
+    """Device µs per step by kernel group, from a torch.profiler trace of
+    ``calls`` calls of ``fn``, each ``steps`` steps; prints the groups and
+    the 8 longest kernels. Returns the summed kernel µs and the kernels and
+    copies per step."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -588,6 +604,7 @@ def profile_device(fn, calls: int) -> float:
             fn()
         torch.cuda.synchronize()
     groups, kernels_us, launched = {}, {}, 0
+    per = calls * steps
     for e in prof.events():
         # device-side ranges of annotations (Optimizer.step#Adam.step) span
         # kernels counted on their own
@@ -595,7 +612,7 @@ def profile_device(fn, calls: int) -> float:
                 or getattr(e, "is_user_annotation", False)
                 or e.name.startswith("Optimizer.")):
             continue
-        us = e.time_range.elapsed_us() / calls
+        us = e.time_range.elapsed_us() / per
         launched += 1
         group = next((g for g, keys in _GROUPS if any(k in e.name for k in keys)),
                      "other elementwise and reductions")
@@ -607,28 +624,79 @@ def profile_device(fn, calls: int) -> float:
         print(f"  {us:10.2f} us  {group}")
     for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    {us:10.2f} us  {name[:100]}")
-    print(f"  {launched / calls:10.1f} device kernels and copies per call")
-    return sum(groups.values())
+    print(f"  {launched / per:10.1f} device kernels and copies per step")
+    return sum(groups.values()), launched / per
 
 
-def timed_paths(fn, rounds: int, reps: int) -> dict:
-    """Median eager times of ``fn`` per path, kernel and plain in turns."""
-    runs = {"kernel": [], "plain": []}
-    for order in (("kernel", "plain"), ("plain", "kernel")) * rounds:
-        for label in order:
-            with plain_path(label):
-                runs[label].append(median_ms(fn, reps=reps))
+LEAD_IN_KERNELS = 4
+# the kernels of the paths by the names the card runs them under
+DEVICE_NAMES = {"instance_norm_fwd": ("instance_norm_fwd_kernel",),
+                "instance_norm_bwd": ("instance_norm_bwd_kernel",),
+                "stem_conv": ("stem_conv_kernel", "stem_conv_mma_kernel")}
+
+
+def device_launches(fn):
+    """``fn()`` under torch.profiler. Returns its result and how often the
+    card ran each kernel of the paths, counted from the trace by kernel
+    name: a CUDA-graph replay calls no wrapper, so the wrappers' counts
+    (``kernels.LAUNCHES``) see only the steps the host ran or captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a lead-in of other kernels, so that none of fn's falls into the
+        # trace's start (a run once counted one S fewer on the card than the
+        # wrapper launched, in the first generator pass of a predict)
+        for _ in range(LEAD_IN_KERNELS):
+            torch.zeros(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        out = fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(DEVICE_NAMES, 0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    for e in device:
+        name = next((n for n, keys in DEVICE_NAMES.items()
+                     if any(k in e.name for k in keys)), None)
+        if name is not None:
+            counts[name] += 1
+    return out, counts
+
+
+def eager_paths(fn) -> dict:
+    """The kernel and the plain path of an eager ``fn``: label -> (fn, steps
+    per call, context)."""
+    return {"kernel": (fn, 1, contextlib.nullcontext),
+            "plain": (fn, 1, lambda: plain_path("plain"))}
+
+
+def timed_paths(paths: dict, rounds: int, reps: int) -> dict:
+    """Median eager times of one step per path, the paths in turns."""
+    runs = {label: [] for label in paths}
+    order = list(paths)
+    for labels in (order, order[::-1]) * rounds:
+        for label in labels:
+            fn, steps, context = paths[label]
+            with context():
+                runs[label].append(median_ms(fn, reps=reps) / steps)
     return runs
 
 
-def profile_paths(fn, calls: int, runs: dict, what: str) -> None:
-    for label in ("kernel", "plain"):
+def profile_paths(paths: dict, calls: int, runs: dict, what: str) -> dict:
+    """Each path's profile, with the card's idle share of its median step.
+    Returns label -> (device µs, kernels per step, idle share)."""
+    out = {}
+    for label, (fn, steps, context) in paths.items():
         print(f"{label} path, device time per {what}:")
-        with plain_path(label):
-            busy_us = profile_device(fn, calls)
-        eager_ms = float(np.median(runs[label]))
-        print(f"  {busy_us:10.2f} us  sum of kernel time; eager {what} median {eager_ms:.3f} ms, "
-              f"so the card is idle {1 - busy_us / 1e3 / eager_ms:.1%} of it")
+        with context():
+            busy_us, per_step = profile_device(fn, calls, steps)
+        step_ms = float(np.median(runs[label]))
+        idle = 1 - busy_us / 1e3 / step_ms
+        print(f"  {busy_us:10.2f} us  sum of kernel time; {what} median {step_ms:.3f} ms, "
+              f"so the card is idle {idle:.1%} of it")
+        out[label] = (busy_us, per_step, idle)
+    return out
 
 
 def _restore_checked(trainer, weights: str, seeded) -> None:
@@ -650,13 +718,12 @@ def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
             m.register_forward_hook(lambda mod, inp, o: seen.add(tuple(inp[0].shape[1:])))
     passes = -(-u8.shape[0] // BATCH)
     kernels.reset_launches()
-    pred = trainer.generate_batched(u8, chunk=BATCH)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    pred, launches = device_launches(lambda: trainer.generate_batched(u8, chunk=BATCH))
+    host = dict(kernels.LAUNCHES)
     want = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes}
-    print(f"launches on the predict path: {launches} over {passes} generator passes, "
-          f"expected {want}")
-    if launches != want:
+    print(f"launches on the predict path, counted on the card: {launches} over {passes} "
+          f"generator passes, expected {want}; by the wrappers: {host}")
+    if launches != want or host != want:
         raise AssertionError("launch counts differ from the generator's structure")
     want_sites = {(hw, hw, c) for hw, c in norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))}
     if seen != want_sites:
@@ -717,14 +784,14 @@ def run_slice(tmp: str) -> dict:
         with torch.no_grad():
             trainer.gen_g(x, generator=gen.manual_seed(0), compute_dtype=torch.bfloat16)
 
-    fwd_runs = timed_paths(fwd, rounds=4, reps=10)
+    fwd_runs = timed_paths(eager_paths(fwd), rounds=4, reps=10)
     for label, runs_ms in fwd_runs.items():
         print(f"generator forward, batch {BATCH} resident on the card, {label} path: "
               f"median {np.median(runs_ms):.3f} ms (rounds {[round(r, 3) for r in runs_ms]})")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     phase(f"5b. profile: CycleGAN generator forward, batch {BATCH} resident on the card")
-    profile_paths(fwd, 5, fwd_runs, "forward")
+    profile_paths(eager_paths(fwd), 5, fwd_runs, "forward")
     return launches
 
 
@@ -771,23 +838,34 @@ def check_step_paths(bf16, fp32, x, y, draws) -> None:
         raise AssertionError("train step: kernel path disagrees with the plain path")
 
 
-def check_fit(trainer, make_trainer, fit, want: dict, steps: int) -> tuple[dict, float]:
-    """``fit`` (one epoch) with its launches counted against ``want``; finite
-    losses, every network changed, and a checkpoint round trip of every
-    network and Adam. Returns the launches and the peak device memory."""
+def check_fit(trainer, make_trainer, fit, want: dict, want_host: dict, want_epoch: dict,
+              steps: int) -> tuple[dict, float]:
+    """``fit`` (one epoch, its full steps as CUDA-graph replays) with the
+    kernels' launches counted on the card against the derivation ``want``,
+    the wrappers' counts against ``want_host`` (the steps the host ran or
+    captured) and the runners' eager steps, captures and replays against
+    ``want_epoch``; finite losses, every network changed, Adam's step count
+    equal to the steps trained (no warm-up leaked), and a checkpoint round
+    trip of every network and Adam. Returns the launches and the peak device
+    memory."""
     before = {k: [p.detach().clone() for p in v] for k, v in trainer.params.items()}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    train_cost, val_cost, mgr = fit()
-    torch.cuda.synchronize()
+    (train_cost, val_cost, mgr), launches = device_launches(fit)
     fit_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    host = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"fit: {fit_s:.2f} s with the first step's set-up; launches {launches}, expected "
-          f"{want}; peak device memory {peak:.2f} GiB")
+    captures = ", ".join(f"{'train' if key[0] else 'val'} {runner.capture_s:.2f} s"
+                         for key, (runner, _, _) in trainer._runners.items())
+    print(f"fit (under the profiler): {fit_s:.2f} s with the set-up; launches counted on the "
+          f"card {launches}, expected {want}; by the wrappers {host}, expected {want_host}; "
+          f"runner steps {trainer.epoch_counts}, expected {want_epoch}; graph captures: "
+          f"{captures}; peak device memory {peak:.2f} GiB")
     if launches != want:
         raise AssertionError("launch counts differ from the step's derivation")
+    if host != want_host or trainer.epoch_counts != want_epoch:
+        raise AssertionError("the runners ran other steps eagerly or as replays than expected")
     for k in train_cost:
         print(f"  {k}: train {train_cost[k][0]:.4f}, val {val_cost[k][0]:.4f}")
     if not all(math.isfinite(v[0]) for d in (train_cost, val_cost) for v in d.values()):
@@ -820,16 +898,126 @@ def check_fit(trainer, make_trainer, fit, want: dict, steps: int) -> tuple[dict,
     return launches, peak
 
 
-def step_numbers(step, batch: int, peak: float, what: str) -> None:
-    """The median step time per path in alternating rounds, images/s, and a
-    profile of two steps per path."""
-    runs = timed_paths(step, rounds=3, reps=5)
+def epoch_plan_counts(per_train: dict, per_val: dict, train: tuple, val: tuple):
+    """What one epoch of ``fit`` should run, from (full steps, tail rows) of
+    the train and the val epoch: the card runs every step's kernels
+    (``per_train``, ``per_val`` per step); the host traces them only where a
+    runner runs its first step eagerly (the capture's warm-up), captures it,
+    or runs a tail; the other full steps are replays. Returns the device
+    launches, the wrappers' launches and the runners' counts."""
+    ran = {n: 0 for n in per_train}
+    traced = {n: 0 for n in per_train}
+    counts = {"eager": 0, "captures": 0, "replays": 0}
+    for per, (full, tail) in ((per_train, train), (per_val, val)):
+        for n in per:
+            ran[n] += per[n] * (full + (tail > 0))
+            traced[n] += per[n] * ((2 if full else 0) + (tail > 0))
+        if full:
+            counts["eager"] += 1
+            counts["captures"] += 1
+            counts["replays"] += full - 1
+    return ran, traced, counts
+
+
+def copy_state(trainer) -> dict:
+    """The trainer's state through a buffer, as ``--resume`` loads it: the
+    copy shares no tensor with the trainer (an Adam's ``load_state_dict``
+    keeps tensors that are on the right device already)."""
+    buf = io.BytesIO()
+    torch.save(trainer.state(), buf)
+    buf.seek(0)
+    return torch.load(buf, map_location="cpu", weights_only=True)
+
+
+def check_graph_step(fitted, make_trainer, caches: tuple, batch: int):
+    """Two steps of the epoch runner (the first eager as the capture's
+    warm-up, the second a graph replay) against two eager ``_step``s, from
+    the fitted state and on the same rows and draws: the losses within
+    ``STEP_TOL``'s bf16 loss tolerance (relative), each network's parameter
+    update within its gradient tolerance (relative L2). The same kernels run
+    in the same order; cuDNN's weight gradients may sum in another order.
+    Returns the graph trainer."""
+    state = copy_state(fitted)
+    graph, eager = make_trainer(), make_trainer()
+    graph.load_state(state)
+    eager.load_state(state)
+    start = {k: torch.cat([p.detach().flatten().float() for p in v])
+             for k, v in graph.params.items()}
+    rows = tuple(torch.arange(2 * batch, device="cuda").view(2, batch) for _ in caches)
+    got = graph._cached_epoch(caches, rows, 0, True)
+    want = torch.stack([eager._step(*(c.index_select(0, r[s]) for c, r in zip(caches, rows)),
+                                    0, 0, s) for s in range(2)])
+    loss_err = ((got - want).abs() / want.abs()).max().item()
+    upd_err = {}
+    for k in graph.params:
+        moved = [torch.cat([p.detach().flatten().float() for p in t.params[k]]) - start[k]
+                 for t in (graph, eager)]
+        upd_err[k] = _rel(moved[0], moved[1])
+    upd = ", ".join(f"{k} {v:.3e}" for k, v in upd_err.items())
+    print(f"graph step vs eager step (2 steps from the fitted state; the second a replay): "
+          f"losses {got[1].tolist()} vs {want[1].tolist()}, max relative error {loss_err:.3e} "
+          f"(tol {STEP_TOL['bf16'][0]:g}); parameter updates, relative L2 error: {upd} "
+          f"(tol {STEP_TOL['bf16'][1]:g}); runner {graph.epoch_counts}, capture "
+          f"{next(iter(graph._runners.values()))[0].capture_s:.2f} s")
+    if graph.epoch_counts != {"eager": 1, "captures": 1, "replays": 1}:
+        raise AssertionError("the runner did not replay its second step")
+    if loss_err > STEP_TOL["bf16"][0] or max(upd_err.values()) > STEP_TOL["bf16"][1]:
+        raise AssertionError("graph step disagrees with the eager step")
+    del eager
+    return graph
+
+
+def peak_gib(fn, context) -> float:
+    """Peak device memory, GiB, over one call of ``fn`` (with everything else
+    that is resident)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with context():
+        fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def graph_numbers(graph, eager_step, caches: tuple, batch: int, phase8: dict, what: str) -> None:
+    """The graph path's step time, rate, device time, idle share, kernels
+    per step and peak memory, timed in turns with the eager kernel path (an
+    epoch of GRAPH_STEPS replays per call, divided by the steps), beside
+    phase 8's eager kernel and plain paths."""
+    rows = tuple(torch.arange(GRAPH_STEPS * batch, device="cuda").remainder(c.shape[0]).view(
+        GRAPH_STEPS, batch) for c in caches)
+    paths = {"graph": (lambda: graph._cached_epoch(caches, rows, 1, True), GRAPH_STEPS,
+                       contextlib.nullcontext),
+             **eager_paths(eager_step)}
+    runs = timed_paths({label: paths[label] for label in ("graph", "kernel")}, rounds=3, reps=3)
+    prof = profile_paths({"graph": paths["graph"]}, 1, runs, "train step")
+    g_ms, k_ms = (float(np.median(runs[label])) for label in ("graph", "kernel"))
+    print(f"train step, graph path: median {g_ms:.3f} ms (rounds "
+          f"{[round(r, 3) for r in runs['graph']]}), {batch / g_ms * 1e3:.2f} {what}/s; "
+          f"eager kernel path in the same rounds: median {k_ms:.3f} ms, "
+          f"{batch / k_ms * 1e3:.2f} {what}/s")
+    table = [("graph", g_ms, *prof["graph"])] + [
+        (label, float(np.median(phase8["runs"][label])), *phase8["profile"][label])
+        for label in ("kernel", "plain")]
+    print(f"{'path':>8} {'step_ms':>9} {what + '/s':>14} {'device_ms':>10} {'idle':>7} "
+          f"{'kernels/step':>13} {'peak_GiB':>9}  (peak: one call, both trainers resident)")
+    for label, ms, us, per, idle in table:
+        fn, _, context = paths[label]
+        print(f"{label:>8} {ms:>9.3f} {batch / ms * 1e3:>14.2f} {us / 1e3:>10.3f} "
+              f"{idle:>7.1%} {per:>13.1f} {peak_gib(fn, context):>9.2f}"
+              + ("" if label == "graph" else "  (phase 8's rounds)"))
+
+
+def step_numbers(step, batch: int, peak: float, what: str) -> dict:
+    """The median eager step time per path in alternating rounds, images/s,
+    and a profile of two steps per path. Returns the rounds and profiles."""
+    paths = eager_paths(step)
+    runs = timed_paths(paths, rounds=3, reps=5)
     for label, runs_ms in runs.items():
         med = float(np.median(runs_ms))
         print(f"train step, {label} path: median {med:.3f} ms "
               f"(rounds {[round(r, 3) for r in runs_ms]}), {batch / med * 1e3:.2f} {what}/s")
     print(f"peak device memory of fit {peak:.2f} GiB")
-    profile_paths(step, 2, runs, "train step")
+    return {"runs": runs, "profile": profile_paths(paths, 2, runs, "train step")}
 
 
 def run_training(tmp: str) -> dict:
@@ -861,9 +1049,10 @@ def run_training(tmp: str) -> dict:
     val_steps = -(-N_VAL // TRAIN_BATCH)
     k1, k2 = train_step_launches(len(norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))),
                                  len(DISC_NORM_SITES))
-    want = {"instance_norm_fwd": (train_steps + val_steps) * k1,
-            "instance_norm_bwd": train_steps * k2,
-            "stem_conv": (train_steps + val_steps) * CYCLEGAN_STEMS_PER_STEP}
+    want, want_host, want_epoch = epoch_plan_counts(
+        {"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
+        {"instance_norm_fwd": k1, "instance_norm_bwd": 0, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
+        divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH), divmod(N_VAL, TRAIN_BATCH))
     print(f"1 epoch: {train_steps} train steps (the last a zip tail of "
           f"{N_TRAIN_X - (train_steps - 1) * TRAIN_BATCH} X and {TRAIN_BATCH} Y rows) and "
           f"{val_steps} val steps; per train step {k1} K1, {k2} K2 and "
@@ -875,9 +1064,13 @@ def run_training(tmp: str) -> dict:
             return (*trainer.fit(train_x, train_y, val_x, val_y, test, tmp,
                                  checkpoint_manager=mgr), mgr)
 
-    launches, peak = check_fit(trainer, lambda: CycleGANTrainer(cfg), fit, want, train_steps)
-    print(f"InstanceNormFunction.backward calls {bwd_calls[0]}")
-    if bwd_calls[0] != want["instance_norm_bwd"]:
+    launches, peak = check_fit(trainer, lambda: CycleGANTrainer(cfg), fit, want, want_host,
+                               want_epoch, train_steps)
+    # the host traces the backward of a step it runs eagerly or captures; a
+    # replay runs the captured K2 launches without calling it
+    print(f"InstanceNormFunction.backward calls {bwd_calls[0]}, expected "
+          f"{want_host['instance_norm_bwd']}")
+    if bwd_calls[0] != want_host["instance_norm_bwd"]:
         raise AssertionError("K2 calls differ from the norm backwards")
 
     # one step from the fitted state, kernel path vs plain path
@@ -894,8 +1087,15 @@ def run_training(tmp: str) -> dict:
 
     phase(f"8. CycleGAN training numbers: train step at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}, "
           "uint8 batch resident on the card")
-    # what fit runs per step: draws, jitter, gradients, four Adam updates
-    step_numbers(lambda: trainer._step(u8x, u8y, 0, 0, 0), TRAIN_BATCH, peak, "image-pairs")
+    # what the eager step runs: draws, jitter, gradients, four Adam updates
+    eager_step = lambda: trainer._step(u8x, u8y, 0, 0, 0)
+    phase8 = step_numbers(eager_step, TRAIN_BATCH, peak, "image-pairs")
+
+    phase(f"8b. CycleGAN graph step: the epoch runner's CUDA graph against the eager step, "
+          f"batch {TRAIN_BATCH}")
+    caches = tuple(torch.from_numpy(a).to("cuda") for a in (train_x, train_y))
+    graph = check_graph_step(trainer, lambda: CycleGANTrainer(cfg), caches, TRAIN_BATCH)
+    graph_numbers(graph, eager_step, caches, TRAIN_BATCH, phase8, "image-pairs")
     return launches
 
 
@@ -936,8 +1136,10 @@ def run_pix2pix_training(tmp: str) -> dict:
     test = rng.integers(0, 256, (1, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
     mgr = CheckpointManager(os.path.join(tmp, "training_checkpoints"), max_to_keep=1)
     train_steps, val_steps = -(-N_P2P_TRAIN // P2P_BATCH), -(-N_P2P_VAL // P2P_BATCH)
-    want = {"instance_norm_fwd": 0, "instance_norm_bwd": 0,
-            "stem_conv": PIX2PIX_STEMS_PER_STEP * (train_steps + val_steps)}
+    per_step = {"instance_norm_fwd": 0, "instance_norm_bwd": 0,
+                "stem_conv": PIX2PIX_STEMS_PER_STEP}
+    want, want_host, want_epoch = epoch_plan_counts(
+        per_step, per_step, divmod(N_P2P_TRAIN, P2P_BATCH), divmod(N_P2P_VAL, P2P_BATCH))
     print(f"1 epoch: {train_steps} train steps (the last of {N_P2P_TRAIN % P2P_BATCH} rows) and "
           f"{val_steps} val steps (the last of {N_P2P_VAL % P2P_BATCH} rows), "
           f"{PIX2PIX_STEMS_PER_STEP} S per step, no K1 or K2 (batch statistics)")
@@ -945,7 +1147,8 @@ def run_pix2pix_training(tmp: str) -> dict:
     def fit():
         return (*trainer.fit(train, val, test, tmp, checkpoint_manager=mgr), mgr)
 
-    launches, peak = check_fit(trainer, lambda: Pix2PixTrainer(cfg), fit, want, train_steps)
+    launches, peak = check_fit(trainer, lambda: Pix2PixTrainer(cfg), fit, want, want_host,
+                               want_epoch, train_steps)
 
     u8 = torch.from_numpy(train[:P2P_BATCH]).to("cuda")
     x, y = paired_jitter_batch(u8, torch.Generator(device="cuda").manual_seed(SEED + 4),
@@ -957,9 +1160,49 @@ def run_pix2pix_training(tmp: str) -> dict:
 
     phase(f"11. Pix2Pix training numbers: train step at {IMG_SIZE}², bf16, batch {P2P_BATCH}, "
           "uint8 batch resident on the card")
-    # what fit runs per step: draws, paired jitter, gradients, two Adam updates
-    step_numbers(lambda: trainer._step(u8, 0, 0, 0), P2P_BATCH, peak, "image-pairs")
+    # what the eager step runs: draws, paired jitter, gradients, two Adam updates
+    eager_step = lambda: trainer._step(u8, 0, 0, 0)
+    phase8 = step_numbers(eager_step, P2P_BATCH, peak, "image-pairs")
+
+    phase(f"11b. Pix2Pix graph step: the epoch runner's CUDA graph against the eager step, "
+          f"batch {P2P_BATCH}")
+    caches = (torch.from_numpy(train).to("cuda"),)
+    graph = check_graph_step(trainer, lambda: Pix2PixTrainer(cfg), caches, P2P_BATCH)
+    graph_numbers(graph, eager_step, caches, P2P_BATCH, phase8, "image-pairs")
+    del graph, caches, trainer
+    bench_batch_epoch(tmp)
     return launches
+
+
+def bench_batch_epoch(tmp: str) -> None:
+    """Not a gate: one epoch of GRAPH_STEPS full steps of Pix2Pix at
+    bench.py's per-chip batch, after the epoch that captured its graph, with
+    its pairs/s and the peak device memory of both epochs."""
+    argv = ["--data", tmp, "--output", tmp, "--train", "--epochs", "2",
+            "--img-size", str(IMG_SIZE), "--batch-size", str(P2P_BENCH_BATCH), "--dtype", "bf16"]
+    trainer = Pix2PixTrainer(parse_pix2pix(argv))
+    offsets_from_seed(trainer)
+    pad = IMG_SIZE + 30
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cache = torch.randint(0, 256, (GRAPH_STEPS * P2P_BENCH_BATCH, 2, pad, pad, 1),
+                          generator=g, device="cuda", dtype=torch.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = trainer.run_epoch(cache, 0, training=True)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = trainer.run_epoch(cache, 1, training=True)
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (np.isfinite(first).all() and np.isfinite(second).all()):
+        raise AssertionError("a loss is not finite")
+    print(f"Pix2Pix at batch {P2P_BENCH_BATCH} (bench.py's per-chip batch), {IMG_SIZE}², bf16: "
+          f"a graph epoch of {GRAPH_STEPS} steps took {epoch_s * 1e3:.1f} ms, "
+          f"{GRAPH_STEPS * P2P_BENCH_BATCH / epoch_s:.2f} image-pairs/s "
+          f"({epoch_s / GRAPH_STEPS * 1e3:.3f} ms per step; the epoch before, with the warm-up "
+          f"step and the capture, {capture_s:.2f} s); runner {trainer.epoch_counts}; peak device "
+          f"memory {peak:.2f} GiB")
 
 
 def tf32_off() -> None:
@@ -1052,7 +1295,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         add(run_pix2pix_training(tmp))
 
-    print(f"\nlaunches on the four main paths: {launches}")
+    print(f"\nlaunches on the four main paths, counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):
         raise AssertionError("a kernel of the paths was never launched")
     record = {"kernels": [

@@ -111,10 +111,9 @@ def refuse_unported(cfg: BaseConfig) -> None:
     """Exit when --train asks for a path that is not ported yet. The port
     decodes the whole corpus into host memory and keeps it on the card, so
     ``--host-cache off`` (gan_tpu streams from files) and ``--device-cache
-    off`` would be ignored; ``auto`` and ``on`` are what the port does."""
-    unported = [flag for flag, on in (("--resume", cfg.resume),
-                                      ("--checkpoint-every", cfg.checkpoint_every),
-                                      ("--num-devices > 1", cfg.num_devices > 1),
+    off`` would be ignored; ``auto`` and ``on`` are what the port does.
+    ``--resume`` and ``--checkpoint-every`` are ported."""
+    unported = [flag for flag, on in (("--num-devices > 1", cfg.num_devices > 1),
                                       ("--host-cache off", cfg.host_cache == "off"),
                                       ("--device-cache off", cfg.device_cache == "off")) if on]
     if cfg.train and unported:
@@ -170,7 +169,7 @@ def _add_common(p: argparse.ArgumentParser, argv) -> None:
                    help="host-RAM data cache; the port always decodes into RAM "
                         "(off is refused with --train)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="gan_tpu training flag; parsed, unused by the port")
+                   help="also checkpoint every N epochs (0 = only the reference's cadence)")
 
 
 def parse_pix2pix(argv=None) -> Pix2PixConfig:

@@ -4,7 +4,8 @@
 * ``single_jitter_batch``: CycleGAN's ``random_jitter``: an independent
   random crop of each (S+30)² image to S², a 50% left-right mirror per image,
   then normalize. ``crop_flip_normalize`` does the crop for given draws, so
-  a test can hand both packages the same offsets.
+  a test can hand both packages the same offsets, and ``jitter_draws`` makes
+  the draws, so a CUDA-graph step can take them from static buffers.
 * ``paired_jitter_batch``: Pix2Pix's ``random_jitter``: one crop offset and
   one mirror gate per (input, target) pair, shared by both images.
 
@@ -38,9 +39,11 @@ def crop_flip_normalize(batch_u8: torch.Tensor, oh: torch.Tensor, ow: torch.Tens
     return normalize_batch(out, dtype)
 
 
-def _draws(b: int, src: int, img_size: int, generator: torch.Generator | None, device):
-    """Crop offsets uniform in [0, src − img_size], and a mirror gate that is
-    on when a uniform draw exceeds 0.5."""
+def jitter_draws(b: int, src: int, img_size: int, generator: torch.Generator | None, device):
+    """The jitter's draws for ``b`` images of ``src``² cropped to
+    ``img_size``²: row and column offsets uniform in [0, src − img_size], and
+    a mirror gate that is on when a uniform draw exceeds 0.5, in that order
+    from ``generator``. Returns (oh, ow, flip), each (b,)."""
     limit = src - img_size + 1
     oh = torch.randint(0, limit, (b,), generator=generator, device=device)
     ow = torch.randint(0, limit, (b,), generator=generator, device=device)
@@ -49,12 +52,14 @@ def _draws(b: int, src: int, img_size: int, generator: torch.Generator | None, d
 
 
 def single_jitter_batch(batch_u8: torch.Tensor, generator: torch.Generator | None, *,
-                        img_size: int, dtype=torch.float32) -> torch.Tensor:
+                        img_size: int, dtype=torch.float32, draws=None) -> torch.Tensor:
     """Independent crop + mirror + normalize. batch_u8: (B, S+30, S+30, C) uint8
-    on the generator's device."""
-    oh, ow, flip = _draws(batch_u8.shape[0], batch_u8.shape[1], img_size, generator,
-                          batch_u8.device)
-    return crop_flip_normalize(batch_u8, oh, ow, flip, img_size=img_size, dtype=dtype)
+    on the generator's device. ``draws`` = (oh, ow, flip), each (B,), replaces
+    the generator's."""
+    if draws is None:
+        draws = jitter_draws(batch_u8.shape[0], batch_u8.shape[1], img_size, generator,
+                             batch_u8.device)
+    return crop_flip_normalize(batch_u8, *draws, img_size=img_size, dtype=dtype)
 
 
 def paired_jitter_batch(batch_u8: torch.Tensor, generator: torch.Generator | None, *,
@@ -64,7 +69,7 @@ def paired_jitter_batch(batch_u8: torch.Tensor, generator: torch.Generator | Non
     flip), each (B,), replaces the generator's. Returns (input, target), each
     a contiguous (B, S, S, C) tensor in ``dtype``."""
     if draws is None:
-        draws = _draws(batch_u8.shape[0], batch_u8.shape[2], img_size, generator,
-                       batch_u8.device)
+        draws = jitter_draws(batch_u8.shape[0], batch_u8.shape[2], img_size, generator,
+                             batch_u8.device)
     return tuple(crop_flip_normalize(batch_u8[:, k], *draws, img_size=img_size, dtype=dtype)
                  for k in (0, 1))

@@ -34,6 +34,12 @@ def conv_kernel_init(shape, generator: torch.Generator | None, stddev: float = 0
     return nn.Parameter(stddev * torch.randn(shape, generator=generator))
 
 
+def keep_mask(shape, generator: torch.Generator | None, device, rate: float = DROP_RATE):
+    """Inverted dropout's keep-mask (True = keep): a uniform draw from
+    ``generator`` below 1 − rate."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def dropout(x, rate: float, *, generator: torch.Generator | None = None,
             mask: torch.Tensor | None = None):
     """Inverted dropout (TF semantics). ``mask`` (True = keep) is used as
@@ -42,7 +48,7 @@ def dropout(x, rate: float, *, generator: torch.Generator | None = None,
     if mask is None:
         if generator is None:
             return x
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+        mask = keep_mask(x.shape, generator, x.device, rate)
     return torch.where(mask.to(x.device), x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                                          device=x.device))
 

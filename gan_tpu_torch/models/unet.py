@@ -63,6 +63,12 @@ class UNetGenerator(nn.Module):
         """Dropout sites per forward pass (the masks ``forward`` consumes)."""
         return sum(drop for _f, drop in self.up_specs)
 
+    def dropout_shapes(self, batch: int, size: int) -> list[tuple[int, int, int, int]]:
+        """The NHWC shape of each dropout site's mask, in call order, for a
+        (batch, size, size, C) input: up block i works at size / 2^(depth-1-i)."""
+        return [(batch, size >> (self.depth - 1 - i), size >> (self.depth - 1 - i), f)
+                for i, (f, drop) in enumerate(self.up_specs) if drop]
+
     def forward(self, x, *, generator: torch.Generator | None = None,
                 masks: Sequence[torch.Tensor] | None = None, compute_dtype=None,
                 per_sample: bool = False):

@@ -14,11 +14,16 @@ and ``training_checkpoints/<epoch>/`` (the last one); in predict mode
 ``prediction_images/img{N}.png``. ``--weights`` points at a run (or
 ``training_checkpoints/``) holding the port's torch checkpoints.
 
-``--resume``, ``--checkpoint-every``, ``--num-devices`` > 1, ``--host-cache
-off`` and ``--device-cache off`` are not ported yet: with ``--train`` they
-exit with an error (the port decodes the whole corpus into host memory and
-keeps the caches on the card; gan_tpu streams from files under
-``--host-cache off``). ``--use-pallas``, ``--remat``, ``--bn-cross-replica``
+``--resume RUN`` restores the whole training state of RUN's latest
+checkpoint and trains its remaining epochs (the metrics hold the epochs this
+run trained); ``--checkpoint-every N`` also saves every N epochs. gan_tpu's
+fault fence is not ported: a CUDA fault poisons the process's context, so a
+failed run is resumed by a new process with ``--resume``, and there is no
+in-process rewind, epoch-0 anchor checkpoint or exit code 17.
+``--num-devices`` > 1, ``--host-cache off`` and ``--device-cache off`` are
+not ported yet: with ``--train`` they exit with an error (the port decodes
+the whole corpus into host memory and keeps the caches on the card; gan_tpu
+streams from files under ``--host-cache off``). ``--use-pallas``, ``--remat``, ``--bn-cross-replica``
 and the caches' ``auto`` and ``on`` are parsed and written to config.json but
 change nothing here: the stems and the per-image batch norm always run the
 CUDA kernels on the card.
@@ -74,8 +79,15 @@ def main(cfg: Pix2PixConfig) -> None:
 
         manager = (CheckpointManager(dirs.checkpoints, max_to_keep=1)
                    if cfg.save_weights == "true" else None)
+        start_epoch = 0
+        if cfg.resume:
+            src = CheckpointManager(latest_checkpoint_dir(cfg.resume))
+            start_epoch = src.latest_epoch() or 0
+            trainer.load_state(src.restore(map_location="cpu"))
+            print(f"Resumed from {cfg.resume} at epoch {start_epoch}", flush=True)
         train_metrics, val_metrics = trainer.fit(train_cache, val_cache, test_cache, dirs.root,
-                                                 checkpoint_manager=manager)
+                                                 checkpoint_manager=manager,
+                                                 start_epoch=start_epoch)
 
         os.makedirs(dirs.final_test_imgs, exist_ok=True)
         test_norm = test_cache.astype(np.float32) / 127.5 - 1.0

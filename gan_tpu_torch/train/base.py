@@ -12,20 +12,35 @@ Draws come from ``torch.Generator``s seeded as a pure function of a key
 (``_draws``), so a re-run repeats them. ``generate`` keys its dropout by
 (seed + 2, index), as gan_tpu folds ``PRNGKey(seed + 2)``; the bits are
 torch's, not jax's, so the packages agree in distribution only.
+
+**Epochs.** The eager step (``train_step``, ``eval_step`` and a subclass's
+``_step``) draws inside the step and is the reference. ``fit`` runs each
+epoch's full batches through a cached runner (:mod:`gan_tpu_torch.train.loop`,
+one per (training, batch shape, caches)) whose step reads static buffers: the
+batch's row indices and :class:`StepDraws`, drawn before each step from the
+same keyed generators in the same call order as the eager step, so the
+draws are bit-identical. On the card the runner replays a CUDA graph of
+that step; the train and val graphs share one memory pool. ``load_state``
+drops the runners, since loading replaces Adam's state tensors, whose
+addresses a graph holds.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+import weakref
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from gan_tpu_torch.data.augment import normalize_batch
 from gan_tpu_torch.device import default_device, torch_dtype
+from gan_tpu_torch.models.blocks import keep_mask
+from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.optim import adam
+from gan_tpu_torch.utils.profiling import Throughput, profile_dir_from_env, trace
 
 
 def generator_depth(img_size: int) -> int:
@@ -60,6 +75,18 @@ def write_raw(preds: np.ndarray, output_path: str, png_names) -> None:
         Image.fromarray(arr).save(os.path.join(raw_path, png_names[i]))
 
 
+class StepDraws(NamedTuple):
+    """One step's random draws, in the eager step's call order: ``masks``,
+    per generator application, the keep-mask of each dropout site; ``jitter``,
+    per jittered image batch, (row offsets, column offsets, flips); empty for
+    a val step."""
+    masks: list
+    jitter: list
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [m for app in self.masks for m in app] + [t for j in self.jitter for t in j]
+
+
 class GANTrainer:
     """``nets`` maps network names to modules, in the order the step takes
     their gradients; ``sampler`` names the generator that ``generate`` runs."""
@@ -70,23 +97,46 @@ class GANTrainer:
         self.dtype = torch_dtype(config.dtype)
         self.nets = {name: net.to(self.device) for name, net in nets.items()}
         self.params = {name: list(net.parameters()) for name, net in self.nets.items()}
-        self.opts = {name: adam(p, config.learning_rate, config.beta_1, config.beta_2)
+        self.opts = {name: adam(p, config.learning_rate, config.beta_1, config.beta_2,
+                                capturable=self.device.type == "cuda")
                      for name, p in self.params.items()}
         self.sampler = self.nets[sampler]
         self._sample_calls = 0   # fresh dropout draws per generate() call
+        self._runners = {}       # (training, batch, caches) -> (runner, static buffers)
+        self._graph_pool = None  # the runners' shared CUDA-graph memory pool
+        # steps the runners ran eagerly, graph captures and replays
+        self.epoch_counts = {"eager": 0, "captures": 0, "replays": 0}
 
     # ------------------------------------------------------------------ step
     def _draws(self, seed: int, *key: int) -> torch.Generator:
         state = np.random.SeedSequence([seed, *key]).generate_state(1)[0]
         return torch.Generator(device=self.device).manual_seed(int(state))
 
-    def _losses(self, x, y, generators):
+    def _masks(self, net, generator: torch.Generator, batch: int) -> list[torch.Tensor]:
+        """The keep-masks one forward of ``net`` at ``batch`` draws from
+        ``generator``, in its dropout sites' order."""
+        return [keep_mask(shape, generator, self.device)
+                for shape in net.dropout_shapes(batch, self.config.img_size)]
+
+    def _losses(self, x, y, generators, masks=None):
         raise NotImplementedError
 
-    def gradients(self, x, y, generators=None):
+    def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
+        """The draws of a full step of ``_step`` (epoch, stream, step)."""
+        raise NotImplementedError
+
+    def _epoch_step(self, caches: tuple, idx: tuple, draws: StepDraws,
+                    training: bool) -> torch.Tensor:
+        """``_step`` on static inputs: the rows ``idx[i]`` of ``caches[i]``
+        and the draws ``draws``. Returns the (K,) losses."""
+        raise NotImplementedError
+
+    def gradients(self, x, y, generators=None, masks=None):
         """({network: gradients of its total w.r.t. its parameters}, losses),
-        with nothing updated. x, y: normalized (N, S, S, C) batches."""
-        totals, losses = self._losses(x, y, generators)
+        with nothing updated. x, y: normalized (N, S, S, C) batches. Dropout
+        draws from ``generators`` or takes ``masks`` (as ``StepDraws.masks``);
+        with neither it is off."""
+        totals, losses = self._losses(x, y, generators, masks)
         grads = {}
         for i, name in enumerate(self.nets):
             grads[name] = torch.autograd.grad(totals[name], self.params[name],
@@ -101,15 +151,69 @@ class GANTrainer:
             opt.step()
             opt.zero_grad(set_to_none=True)
 
-    def train_step(self, x, y, generators=None) -> torch.Tensor:
+    def train_step(self, x, y, generators=None, masks=None) -> torch.Tensor:
         """One step of every network; returns the losses (on the device)."""
-        grads, losses = self.gradients(x, y, generators)
+        grads, losses = self.gradients(x, y, generators, masks)
         self.apply_gradients(grads)
         return losses
 
     @torch.no_grad()
-    def eval_step(self, x, y, generators=None) -> torch.Tensor:
-        return self._losses(x, y, generators)[1]
+    def eval_step(self, x, y, generators=None, masks=None) -> torch.Tensor:
+        return self._losses(x, y, generators, masks)[1]
+
+    # ----------------------------------------------------------------- epoch
+    def _cached_epoch(self, caches: tuple, rows: tuple, epoch: int,
+                      training: bool) -> torch.Tensor:
+        """The full steps of an epoch through the runner of (training, batch,
+        caches): step s takes the rows ``rows[i][s]`` (a (steps, B) index
+        tensor on the device) of ``caches[i]``. Returns (steps, K) losses on
+        the device."""
+        n_steps, b = rows[0].shape
+        stream = 0 if training else 1
+        key = (training, b, tuple((c.data_ptr(), tuple(c.shape)) for c in caches))
+        if key not in self._runners:
+            idx = tuple(torch.empty(b, dtype=torch.int64, device=self.device) for _ in caches)
+            draws = self._step_draws(epoch, stream, 0)   # the static draw buffers
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            trainer = weakref.ref(self)   # no cycle: a dropped trainer frees its graphs at once
+            runner = loop.make_cached_epoch(
+                lambda: trainer()._epoch_step(caches, idx, draws, training), self.device,
+                pool=self._graph_pool, counts=self.epoch_counts)
+            self._runners[key] = (runner, idx, draws)
+        runner, idx, draws = self._runners[key]
+
+        def prepare(s: int) -> None:
+            for buf, r in zip(idx, rows):
+                buf.copy_(r[s])
+            for buf, t in zip(draws.tensors(), self._step_draws(epoch, stream, s).tensors()):
+                buf.copy_(t)
+
+        return runner(n_steps, prepare)
+
+    def _timed_epoch(self, run: Callable[[], np.ndarray], epoch: int, start_epoch: int,
+                     perf: Throughput, images: Callable[[np.ndarray], int], unit: str):
+        """``run()`` (the train epoch), traced into ``GAN_TPU_PROFILE_DIR`` at
+        epoch start_epoch + 1 and timed to the card's synchronisation; under
+        ``GAN_TPU_PERF=1`` it prints the epoch's rate, as gan_tpu does."""
+        perf.start()
+        with trace(profile_dir_from_env() if epoch == start_epoch + 1 else None):
+            out = run()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        rate = perf.stop(images(out))
+        if os.environ.get("GAN_TPU_PERF") == "1":
+            print(f"[perf] epoch {epoch + 1}: {rate:.1f} {unit}/sec "
+                  f"({rate / perf.n_devices:.1f}/chip)", flush=True)
+        return out
+
+    def _checkpoint_every(self, done: int, manager) -> None:
+        """``--checkpoint-every N``: a save after every N epochs besides the
+        reference's cadence, unless this epoch was just saved
+        (gan_tpu/train/pix2pix_trainer.py:591-594)."""
+        every = self.config.checkpoint_every
+        if every and manager is not None and done % every == 0 and manager.latest_epoch() != done:
+            manager.save(done, self.state())
 
     # --------------------------------------------------------------- predict
     @torch.no_grad()
@@ -150,7 +254,11 @@ class GANTrainer:
 
     def load_state(self, state: dict) -> None:
         """Load a state from :meth:`state`, or a generators-only one (what a
-        predict checkpoint needs)."""
+        predict checkpoint needs). Drops the cached epoch runners: Adam's
+        ``load_state_dict`` replaces the state tensors that a captured graph
+        reads, so the next epoch captures anew."""
+        self._runners.clear()
+        self._graph_pool = None
         params = state["params"]
         for name, net in self.nets.items():
             if name in params or name.startswith("gen"):

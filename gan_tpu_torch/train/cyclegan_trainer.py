@@ -22,9 +22,16 @@ seeded as a pure function of (seed + 1, epoch, train or val, step,
 application), so a re-run repeats its draws, as ``loop.epoch_rng`` does for
 the shuffles.
 
-``fit`` is the simplest of gan_tpu's epoch forms: both domains' uint8 train
-and val caches live whole on the device, one step per zipped batch. gan_tpu's
-hybrid and streamed tiers, epoch segments and fault fence are not ported.
+**Epochs.** Both domains' uint8 train and val caches live whole on the
+device, one step per zipped batch. The full steps run through the cached
+epoch runner (a CUDA graph of the step on the card, gan_tpu's compiled
+epoch; train/base.py), the zip tail, whose X and Y widths may differ, as an
+eager step (gan_tpu's ``_run_remainder``). ``fit`` resumes at
+``start_epoch`` (``--resume``) and saves every ``--checkpoint-every``
+epochs. gan_tpu's hybrid and streamed tiers, epoch segments and the fault
+fence's in-process rewind are not ported: a CUDA fault poisons the
+process's context, so recovery on the card is a new process with
+``--resume``.
 """
 
 from __future__ import annotations
@@ -37,18 +44,23 @@ import numpy as np
 import torch
 
 from gan_tpu_torch.config import CycleGANConfig
-from gan_tpu_torch.data.augment import normalize_batch, single_jitter_batch
+from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
+                                        single_jitter_batch)
 from gan_tpu_torch.data.loader import iter_uint8_batches
 from gan_tpu_torch.losses import (CYCLEGAN_LOSS_KEYS, cycle_loss, discriminator_loss,
                                   empty_losses, generator_adversarial_loss, identity_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
 from gan_tpu_torch.train import loop
-from gan_tpu_torch.train.base import GANTrainer, generator_depth, raw_png_names, write_raw
+from gan_tpu_torch.train.base import (GANTrainer, StepDraws, generator_depth, raw_png_names,
+                                     write_raw)
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.utils.grids import save_image_grid
+from gan_tpu_torch.utils.profiling import Throughput
 
 NETWORKS = ("gen_g", "gen_f", "disc_x", "disc_y")
 GENERATOR_APPLICATIONS = 6   # generator forwards per step, one dropout generator each
+# the generator each application runs, in the order of _losses
+APPLICATION_NETS = ("gen_g", "gen_f", "gen_f", "gen_g", "gen_f", "gen_g")
 _JITTER_X, _JITTER_Y = GENERATOR_APPLICATIONS, GENERATOR_APPLICATIONS + 1   # draw indices
 
 
@@ -65,23 +77,25 @@ class CycleGANTrainer(GANTrainer):
                          sampler="gen_g")
 
     # ------------------------------------------------------------------ step
-    def _losses(self, x, y, generators: Optional[Sequence[torch.Generator]]):
+    def _losses(self, x, y, generators: Optional[Sequence[torch.Generator]], masks=None):
         """({network: its total loss}, the 7 losses in CYCLEGAN_LOSS_KEYS order).
         ``generators``: one dropout generator per generator application, in
-        the order below; None turns dropout off."""
+        the order below (APPLICATION_NETS), or ``masks``: each application's
+        keep-masks; with neither dropout is off."""
         dt = self.dtype
         lam = float(self.config.lam)
         k = list(generators) if generators is not None else [None] * GENERATOR_APPLICATIONS
+        m = list(masks) if masks is not None else [None] * GENERATOR_APPLICATIONS
 
-        def gen(net, img, draws):
-            return net(img, generator=draws, compute_dtype=dt)
+        def gen(net, img, app):
+            return net(img, generator=k[app], masks=m[app], compute_dtype=dt)
 
-        fake_y = gen(self.gen_g, x, k[0])
-        cycled_x = gen(self.gen_f, fake_y, k[1])
-        fake_x = gen(self.gen_f, y, k[2])
-        cycled_y = gen(self.gen_g, fake_x, k[3])
-        same_x = gen(self.gen_f, x, k[4])
-        same_y = gen(self.gen_g, y, k[5])
+        fake_y = gen(self.gen_g, x, 0)
+        cycled_x = gen(self.gen_f, fake_y, 1)
+        fake_x = gen(self.gen_f, y, 2)
+        cycled_y = gen(self.gen_g, fake_x, 3)
+        same_x = gen(self.gen_f, x, 4)
+        same_y = gen(self.gen_g, y, 5)
         dx_real = self.disc_x(x, compute_dtype=dt)
         dx_fake = self.disc_x(fake_x, compute_dtype=dt)
         dy_real = self.disc_y(y, compute_dtype=dt)
@@ -113,13 +127,34 @@ class CycleGANTrainer(GANTrainer):
         return self.eval_step(normalize_batch(u8x, self.dtype), normalize_batch(u8y, self.dtype),
                               gens)
 
+    def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
+        seed, b, size = self.config.seed + 1, self.config.batch_size, self.config.img_size
+        masks = [self._masks(self.nets[net], self._draws(seed, epoch, stream, step, app), b)
+                 for app, net in enumerate(APPLICATION_NETS)]
+        if stream != 0:
+            return StepDraws(masks, [])
+        jitter = [jitter_draws(b, size + JITTER_PAD, size,
+                               self._draws(seed, epoch, stream, step, key), self.device)
+                  for key in (_JITTER_X, _JITTER_Y)]
+        return StepDraws(masks, jitter)
+
+    def _epoch_step(self, caches, idx, draws: StepDraws, training: bool) -> torch.Tensor:
+        u8x, u8y = (cache.index_select(0, i) for cache, i in zip(caches, idx))
+        if training:
+            x, y = (single_jitter_batch(u8, None, img_size=self.config.img_size, dtype=self.dtype,
+                                        draws=jitter) for u8, jitter in zip((u8x, u8y), draws.jitter))
+            return self.train_step(x, y, masks=draws.masks)
+        return self.eval_step(normalize_batch(u8x, self.dtype), normalize_batch(u8y, self.dtype),
+                              masks=draws.masks)
+
     def run_epoch(self, x_dev: torch.Tensor, y_dev: torch.Tensor, epoch: int, *,
                   training: bool) -> np.ndarray:
         """One zip(X, Y) pass over uint8 caches on the device: the shorter
         domain's ceil-batched length, independent windowed shuffles per
-        domain (``--buffer-size``). The last step is the zip tail, a partial
-        batch whose X and Y widths may differ. Returns (steps, 7) losses,
-        fetched from the device once."""
+        domain (``--buffer-size``). The full steps run through the cached
+        epoch runner; the last step may be the zip tail, a partial batch
+        whose X and Y widths may differ, run eagerly. Returns (steps, 7)
+        losses, fetched from the device once."""
         cfg = self.config
         b = cfg.batch_size
         nx, ny = x_dev.shape[0], y_dev.shape[0]
@@ -130,20 +165,27 @@ class CycleGANTrainer(GANTrainer):
         rng = loop.epoch_rng(cfg.seed, epoch, stream)
         perm_x = torch.from_numpy(loop.epoch_perm(nx, cfg.buffer_size, rng)).to(self.device)
         perm_y = torch.from_numpy(loop.epoch_perm(ny, cfg.buffer_size, rng)).to(self.device)
-        losses = [self._step(x_dev[perm_x[s * b:(s + 1) * b]], y_dev[perm_y[s * b:(s + 1) * b]],
-                             epoch, stream, s)
-                  for s in range(full + (tail > 0))]
-        return torch.stack(losses).cpu().numpy()
+        losses = []
+        if full:
+            rows = (perm_x[:full * b].view(full, b), perm_y[:full * b].view(full, b))
+            losses.append(self._cached_epoch((x_dev, y_dev), rows, epoch, training))
+        if tail:
+            s = full
+            losses.append(self._step(x_dev[perm_x[s * b:(s + 1) * b]],
+                                     y_dev[perm_y[s * b:(s + 1) * b]], epoch, stream, s)[None])
+        return torch.cat(losses).cpu().numpy()
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_x: np.ndarray, train_y: np.ndarray, val_x: np.ndarray,
             val_y: np.ndarray, test_cache: np.ndarray, output_path: str,
-            checkpoint_manager: Optional[CheckpointManager] = None):
-        """Epoch loop of the reference (cycle_gan.py:278-358). Caches from
+            checkpoint_manager: Optional[CheckpointManager] = None, start_epoch: int = 0):
+        """Epoch loop of the reference (cycle_gan.py:278-358), from
+        ``start_epoch`` (a resumed run). Caches from
         gan_tpu_torch.data.pipeline.build_cyclegan_cache: train
         (N, S+30, S+30, C), val and test (N, S, S, C). A checkpoint and an
-        ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end.
-        Returns the per-epoch mean losses of train and val."""
+        ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end, and
+        one every ``--checkpoint-every`` epochs. Returns the per-epoch mean
+        losses of train and val, of the epochs this call trained."""
         cfg = self.config
         print("\nTraining...\n", flush=True)
         example = test_cache[:1].astype(np.float32) / 127.5 - 1.0
@@ -153,8 +195,13 @@ class CycleGANTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
         val_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
-        for epoch in range(cfg.epochs):
-            tr = self.run_epoch(dev["train_x"], dev["train_y"], epoch, training=True)
+        perf = Throughput(1)
+        # pairs consumed: the zip tail is partial, so it is not counted full
+        pairs = lambda tr: min(tr.shape[0] * cfg.batch_size, len(train_x), len(train_y))
+        for epoch in range(start_epoch, cfg.epochs):
+            tr = self._timed_epoch(
+                lambda: self.run_epoch(dev["train_x"], dev["train_y"], epoch, training=True),
+                epoch, start_epoch, perf, pairs, "image-pairs")
             print("." * (tr.shape[0] // 100), end="", flush=True)
             va = self.run_epoch(dev["val_x"], dev["val_y"], epoch, training=False)
             for i, k in enumerate(CYCLEGAN_LOSS_KEYS):
@@ -170,6 +217,7 @@ class CycleGANTrainer(GANTrainer):
                                     key_index=epoch + 1)
             if (epoch + 1) == cfg.epochs and checkpoint_manager is not None:
                 checkpoint_manager.save(epoch + 1, self.state())
+            self._checkpoint_every(epoch + 1, checkpoint_manager)
 
             print(f"\nCumulative training duration at end of epoch {epoch + 1}: "
                   f"{(time.time() - start) / 60:.2f} min")

@@ -1,12 +1,30 @@
-"""Epoch shuffles and batch counts (the pure-numpy part of
-gan_tpu/train/loop.py: ``epoch_rng``, ``epoch_perm``, ``epoch_plan``).
+"""The device-side epoch, shuffles and batch counts (counterpart of
+gan_tpu/train/loop.py: ``make_cached_epoch``, ``epoch_rng``, ``epoch_perm``,
+``epoch_plan``).
 
-The port keeps its own copy because gan_tpu's module imports jax.
+gan_tpu compiles one program per epoch: a ``scan`` of the step over a
+device-resident cache. Here :func:`make_cached_epoch` builds a
+:class:`CachedEpoch` from a step written against static inputs (the uint8
+caches, a static index buffer, static draw buffers). On the card the first
+step it runs is captured into a ``torch.cuda.CUDAGraph``, and every later
+step replays that graph: the host only writes the step's indices and draws
+into the static buffers and launches the replay, with no synchronisation,
+and the losses are fetched once per epoch. On the CPU the same step runs
+eagerly, step by step. Capture or replay failures raise; nothing falls back
+to an eager step on the card.
+
+The port keeps its own copy of the numpy part because gan_tpu's module
+imports jax.
 """
 
 from __future__ import annotations
 
+import gc
+import time
+from typing import Callable, Optional
+
 import numpy as np
+import torch
 
 
 def epoch_rng(seed: int, epoch: int, stream: int = 0) -> np.random.Generator:
@@ -48,3 +66,91 @@ def epoch_plan(n: int, batch_size: int) -> tuple[int, int]:
     """(full batches, size of the partial last batch) of ``n`` rows; tf.data
     batches without dropping the remainder."""
     return n // batch_size, n % batch_size
+
+
+class CachedEpoch:
+    """Runs ``step_fn`` once per step of an epoch (see :func:`make_cached_epoch`).
+
+    On the card, the first step is the capture's warm-up: it runs eagerly on
+    a side stream, as capturing an autograd backward requires, and it is a
+    real step (it trains once, so the optimizers take exactly one update per
+    step and their state exists before capture). The same step is then
+    captured, and every later step, in this epoch and the next ones,
+    replays the graph. ``counts`` tallies the steps run eagerly, the
+    captures and the replays."""
+
+    def __init__(self, step_fn: Callable[[], torch.Tensor], device: torch.device, *,
+                 counts: dict, pool=None):
+        self.step_fn = step_fn
+        self.device = device
+        self.pool = pool
+        self.counts = counts   # {"eager", "captures", "replays"}: shared tallies
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None   # the graph's losses, rewritten by each replay
+        self.capture_s = 0.0   # host seconds the capture took
+
+    def __call__(self, n_steps: int, prepare: Callable[[int], None]) -> torch.Tensor:
+        """(n_steps, K) losses on the device. ``prepare(s)`` writes step s's
+        inputs into the static buffers; it runs on the current stream before
+        the step, so the host never waits for the device."""
+        losses = None
+        for s in range(n_steps):
+            prepare(s)
+            out = self._step()
+            if losses is None:
+                losses = torch.empty((n_steps, *out.shape), dtype=out.dtype, device=out.device)
+            losses[s].copy_(out)
+        return losses
+
+    def _step(self) -> torch.Tensor:
+        if self.device.type != "cuda":
+            self.counts["eager"] += 1
+            return self.step_fn()
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        try:
+            self.graph.replay()
+        except RuntimeError as err:
+            raise RuntimeError(f"replaying the captured epoch step failed: {err}") from err
+        self.counts["replays"] += 1
+        return self._out
+
+    def _warm_up_and_capture(self) -> torch.Tensor:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            losses = self.step_fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.counts["eager"] += 1
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # no garbage collection inside the capture: a collected graph's
+        # destructor would call the CUDA runtime, which the capture forbids
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.step_fn()
+        except RuntimeError as err:
+            raise RuntimeError(f"capturing the epoch step into a CUDA graph failed: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self._out = graph, out
+        self.counts["captures"] += 1
+        return losses
+
+
+def make_cached_epoch(step_fn: Callable[[], torch.Tensor], device: torch.device, *,
+                      counts: dict, pool=None) -> CachedEpoch:
+    """The epoch runner of ``step_fn`` (gan_tpu/train/loop.py:63).
+
+    ``step_fn()`` runs one step against static inputs (the caches, the index
+    and draw buffers, which ``prepare`` fills before each step) and returns
+    its (K,) losses; it takes no host values and makes no host
+    synchronisation, so that it can be captured. ``counts`` tallies the
+    steps run eagerly, the captures and the replays. ``pool`` is the graph
+    memory pool (``torch.cuda.graph_pool_handle()``) that runners which
+    never run at once may share."""
+    return CachedEpoch(step_fn, device, pool=pool, counts=counts)

@@ -17,10 +17,16 @@ the fake, which is gan_tpu's ``sg_tree`` / ``stop_gradient`` partition.
 from (seed + 1, epoch, train or val, step, index).
 
 **Epochs** run in the fixed order of the split (the reference shuffles once
-there): full batches in order, then the exact-size remainder as a step of
-its own, since padding it would change the batch statistics. The uint8
-caches live whole on the device. gan_tpu's streamed and hybrid tiers, epoch
-segments, fault fence and data parallelism are not ported.
+there): the full batches through the cached epoch runner (a CUDA graph of
+the step on the card, gan_tpu's compiled epoch; train/base.py), then the
+exact-size remainder as an eager step of its own (gan_tpu's
+``_run_remainder``), since padding it would change the batch statistics.
+The uint8 caches live whole on the device. ``fit`` resumes at
+``start_epoch`` (``--resume``) and saves every ``--checkpoint-every``
+epochs. gan_tpu's streamed and hybrid tiers, epoch segments, data
+parallelism and the fault fence's in-process rewind are not ported: a CUDA
+fault poisons the process's context, so recovery on the card is a new
+process with ``--resume``.
 
 **Predict** normalises each image with its own batch-norm statistics
 (``per_sample``, K1 on the card), as the reference's one-image-at-a-time
@@ -37,15 +43,18 @@ import numpy as np
 import torch
 
 from gan_tpu_torch.config import Pix2PixConfig
-from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch
+from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
+                                        paired_jitter_batch)
 from gan_tpu_torch.data.loader import iter_uint8_batches
 from gan_tpu_torch.losses import (PIX2PIX_LOSS_KEYS, discriminator_loss, empty_losses,
                                   pix2pix_generator_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
 from gan_tpu_torch.train import loop
-from gan_tpu_torch.train.base import GANTrainer, generator_depth, raw_png_names, write_raw
+from gan_tpu_torch.train.base import (GANTrainer, StepDraws, generator_depth, raw_png_names,
+                                     write_raw)
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.utils.grids import save_image_grid
+from gan_tpu_torch.utils.profiling import Throughput
 
 NETWORKS = ("gen", "disc")
 _DROPOUT, _JITTER = 0, 1   # draw indices within a step
@@ -62,12 +71,14 @@ class Pix2PixTrainer(GANTrainer):
                          sampler="gen")
 
     # ------------------------------------------------------------------ step
-    def _losses(self, x, y, generator: Optional[torch.Generator]):
+    def _losses(self, x, y, generator: Optional[torch.Generator], masks=None):
         """({network: its total loss}, the 4 losses in PIX2PIX_LOSS_KEYS
-        order). ``generator`` draws the dropout; None turns it off."""
+        order). ``generator`` draws the dropout, or ``masks`` ([G's keep-masks])
+        gives it; with neither it is off."""
         cfg = self.config
         dt = self.dtype
-        fake = self.gen(x, generator=generator, compute_dtype=dt)
+        fake = self.gen(x, generator=generator, masks=None if masks is None else masks[0],
+                        compute_dtype=dt)
         d_real = self.disc(x, y, compute_dtype=dt)
         d_fake = self.disc(x, fake, compute_dtype=dt)
         gen_total, gen_gan, gen_sec = pix2pix_generator_loss(
@@ -87,27 +98,52 @@ class Pix2PixTrainer(GANTrainer):
         x, y = (normalize_batch(u8[:, k], self.dtype).contiguous() for k in (0, 1))
         return self.eval_step(x, y, drop)
 
+    def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
+        seed, b, size = self.config.seed + 1, self.config.batch_size, self.config.img_size
+        masks = [self._masks(self.gen, self._draws(seed, epoch, stream, step, _DROPOUT), b)]
+        if stream != 0:
+            return StepDraws(masks, [])
+        jitter = jitter_draws(b, size + JITTER_PAD, size,
+                              self._draws(seed, epoch, stream, step, _JITTER), self.device)
+        return StepDraws(masks, [jitter])
+
+    def _epoch_step(self, caches, idx, draws: StepDraws, training: bool) -> torch.Tensor:
+        u8 = caches[0].index_select(0, idx[0])
+        if training:
+            x, y = paired_jitter_batch(u8, None, img_size=self.config.img_size, dtype=self.dtype,
+                                       draws=draws.jitter[0])
+            return self.train_step(x, y, masks=draws.masks)
+        x, y = (normalize_batch(u8[:, k], self.dtype).contiguous() for k in (0, 1))
+        return self.eval_step(x, y, masks=draws.masks)
+
     def run_epoch(self, cache_dev: torch.Tensor, epoch: int, *, training: bool) -> np.ndarray:
         """One pass over a uint8 cache on the device in its fixed order: the
-        full batches, then the remainder. Returns (steps, 4) losses, fetched
-        from the device once."""
+        full batches through the cached epoch runner, then the remainder as
+        an eager step. Returns (steps, 4) losses, fetched from the device
+        once."""
         b = self.config.batch_size
         full, tail = loop.epoch_plan(cache_dev.shape[0], b)
-        stream = 0 if training else 1
-        losses = [self._step(cache_dev[s * b:(s + 1) * b], epoch, stream, s)
-                  for s in range(full + (tail > 0))]
+        losses = []
+        if full:
+            rows = torch.arange(full * b, device=self.device).view(full, b)
+            losses.append(self._cached_epoch((cache_dev,), (rows,), epoch, training))
+        if tail:
+            losses.append(self._step(cache_dev[full * b:], epoch, 0 if training else 1, full)[None])
         if not losses:
             return np.zeros((0, len(PIX2PIX_LOSS_KEYS)), np.float32)
-        return torch.stack(losses).cpu().numpy()
+        return torch.cat(losses).cpu().numpy()
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_cache: np.ndarray, val_cache: np.ndarray, test_cache: np.ndarray,
-            output_path: str, checkpoint_manager: Optional[CheckpointManager] = None):
-        """Epoch loop of the reference (pix2pix.py:248-323). Caches from
+            output_path: str, checkpoint_manager: Optional[CheckpointManager] = None,
+            start_epoch: int = 0):
+        """Epoch loop of the reference (pix2pix.py:248-323), from
+        ``start_epoch`` (a resumed run). Caches from
         gan_tpu_torch.data.pipeline.build_pix2pix_cache: train
         (N, 2, S+30, S+30, C), val and test (N, 2, S, S, C). A checkpoint and
-        an ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end.
-        Returns the per-epoch mean losses of train and val."""
+        an ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end,
+        and one every ``--checkpoint-every`` epochs. Returns the per-epoch
+        mean losses of train and val, of the epochs this call trained."""
         cfg = self.config
         print("\nTraining...\n", flush=True)
         example = test_cache[:1].astype(np.float32) / 127.5 - 1.0
@@ -116,8 +152,11 @@ class Pix2PixTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(PIX2PIX_LOSS_KEYS)
         val_cost = empty_losses(PIX2PIX_LOSS_KEYS)
-        for epoch in range(cfg.epochs):
-            tr = self.run_epoch(train_dev, epoch, training=True)
+        perf = Throughput(1)
+        for epoch in range(start_epoch, cfg.epochs):
+            tr = self._timed_epoch(lambda: self.run_epoch(train_dev, epoch, training=True),
+                                   epoch, start_epoch, perf, lambda _: train_cache.shape[0],
+                                   "images")
             print("." * (tr.shape[0] // 100), end="", flush=True)
             va = self.run_epoch(val_dev, epoch, training=False)
             for i, k in enumerate(PIX2PIX_LOSS_KEYS):
@@ -134,6 +173,7 @@ class Pix2PixTrainer(GANTrainer):
                                     key_index=epoch + 1)
             if (epoch + 1) == cfg.epochs and checkpoint_manager is not None:
                 checkpoint_manager.save(epoch + 1, self.state())
+            self._checkpoint_every(epoch + 1, checkpoint_manager)
 
             print(f"\nCumulative training duration at end of epoch {epoch + 1}: "
                   f"{(time.time() - start) / 60:.2f} min")

@@ -167,8 +167,8 @@ def test_checkpoint_manager_restore_creates_nothing(tmp_path):
 
 # the flags whose --train paths are not ported yet: the port keeps the whole
 # corpus in host memory and on the card, so the caches cannot be turned off
-UNPORTED_TRAIN_FLAGS = [["--resume", "r"], ["--checkpoint-every", "2"], ["--num-devices", "2"],
-                        ["--host-cache", "off"], ["--device-cache", "off"]]
+UNPORTED_TRAIN_FLAGS = [["--num-devices", "2"], ["--host-cache", "off"],
+                        ["--device-cache", "off"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED_TRAIN_FLAGS, ids=lambda f: f[0])
@@ -188,6 +188,53 @@ def test_pix2pix_train_is_refused(tmp_path, flags):
     with pytest.raises(SystemExit, match=f"{flags[0]}.* not ported"):
         pix2pix_main(parse_pix2pix(argv))
     assert not (tmp_path / "out").exists()
+
+
+class _ReachedFit(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cli", ["cycle_gan", "pix2pix"])
+@pytest.mark.parametrize("flag", ["--resume", "--checkpoint-every"])
+def test_train_takes_resume_and_checkpoint_every(tmp_path, monkeypatch, flag, cli):
+    """Both CLIs take --resume and --checkpoint-every with --train: the
+    refusal passes, and the flag reaches ``fit`` (--resume as the latest
+    epoch of the run it names, whose state is restored)."""
+    images = tmp_path / "img"
+    images.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 255, (40, 72), np.uint8), "L").save(images / f"i{i}.png")
+    common = ["--output", str(tmp_path / "out"), "--train", "--epochs", "4", "--img-size",
+              "32", "--batch-size", "2", "--test-img", "1", "--dtype", "fp32",
+              "--logging", "false"]
+    if cli == "pix2pix":
+        from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer as trainer_cls
+        parse, main, argv = parse_pix2pix, pix2pix_main, ["--data", str(images), *common]
+    else:
+        trainer_cls = CycleGANTrainer
+        parse, main = parse_cyclegan, port_main
+        argv = ["--input-images", str(images), "--target-images", str(images), *common]
+    if flag == "--resume":
+        run = tmp_path / "run"
+        CheckpointManager(str(run / "training_checkpoints")).save(
+            3, trainer_cls(parse(argv)).state())
+        argv += ["--resume", str(run)]
+    else:
+        argv += ["--checkpoint-every", "2"]
+    cfg = parse(argv)
+    refuse_unported(cfg)
+    reached = {}
+
+    def fit(self, *args, checkpoint_manager=None, start_epoch=0):
+        reached.update(start_epoch=start_epoch, every=self.config.checkpoint_every)
+        raise _ReachedFit
+
+    monkeypatch.setattr(trainer_cls, "fit", fit)
+    with pytest.raises(_ReachedFit):
+        main(cfg)
+    want = {"start_epoch": 3, "every": 0} if flag == "--resume" else {"start_epoch": 0, "every": 2}
+    assert reached == want
 
 
 @pytest.mark.parametrize("value", ["auto", "on"])
