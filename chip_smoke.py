@@ -71,10 +71,22 @@ Phases, each printed; any failure raises and the script exits non-zero:
     step against the plain path;
 11. the Pix2Pix training numbers, as in phase 8, and 11b the graph step as
     in 8b; then, not a gate, an epoch of 8 graph steps at bench.py's
-    per-chip batch of 128 with its image-pairs/s and peak memory.
+    per-chip batch of 128 with its image-pairs/s and peak memory;
+12. the quality slice: seeded random InceptionV3 weights written as an
+    ``.npz`` in gan_tpu's ``save_params`` layout and loaded through
+    ``models/inception.load_params``; the pool3 features of 8 seeded 299²
+    images on the card (TF32 off) against the same module's on the CPU (and
+    the gap with TF32 on, not a gate); phase 9's seeded Pix2Pix generator
+    (bf16) predicts 64 seeded images, with S once and K1 14 times per chunk
+    of 16 on the card, and writes them and 64 seeded targets as PNGs in a
+    temporary directory; ``gan_tpu_torch.tools.eval_quality.main`` scores
+    them on the card with ``--fid-weights`` (every value finite); then the
+    extractor's images/s at batch 64 and 256 (TF32 off, and on for
+    information), its peak device memory and the host's ``sqrtm`` seconds.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``. No PNGs are written.
+and ``{"ok": true, "device": {...}}``. Only phase 12 writes PNGs, into a
+temporary directory.
 """
 
 from __future__ import annotations
@@ -96,12 +108,14 @@ import torch.nn.functional as F
 
 from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
 from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch, single_jitter_batch
-from gan_tpu_torch.models import blocks
+from gan_tpu_torch import quality
+from gan_tpu_torch.models import blocks, inception
 from gan_tpu_torch.models.unet import _DOWN_FILTERS, _UP_SPECS
 from gan_tpu_torch.ops import build, conv, kernels, norm
 from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.tools import eval_quality
 from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
 
 IMG_SIZE = 256
@@ -131,6 +145,11 @@ STEM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2 ** -7 + 2 ** -
 # two forwards' signs differ at 0 may the mask differ. fp32: sums in other
 # orders; bf16: cuDNN may pick another algorithm for the other layouts.
 STEM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# Inception pool3 features, the card (TF32 off) against the CPU, relative to
+# the largest feature: fp32 convs through 94 blocks, cuDNN's algorithms
+# against the CPU's (the port against gan_tpu on the CPU: 9e-7).
+FEATURE_TOL = 1e-4
+N_QUALITY = 64      # images phase 12 generates and scores
 
 
 def sums_tol(count: int) -> float:
@@ -1099,14 +1118,20 @@ def run_training(tmp: str) -> dict:
     return launches
 
 
+def seeded_pix2pix(cfg) -> Pix2PixTrainer:
+    """Phase 9's model: the trainer's seeded init, with seeded batch-norm betas."""
+    trainer = Pix2PixTrainer(cfg)
+    offsets_from_seed(trainer)
+    return trainer
+
+
 def run_pix2pix_predict(tmp: str) -> dict:
     """Phase 9. Returns the kernel launch counts of the main-path run."""
     data, out, weights = (os.path.join(tmp, d) for d in ("data", "out", "run"))
     argv = ["--data", data, "--output", out, "--predict", "--weights", weights,
             "--img-size", str(IMG_SIZE), "--channels", "1", "--dtype", "bf16"]
     cfg = parse_pix2pix(argv)
-    seeded = Pix2PixTrainer(cfg)
-    offsets_from_seed(seeded)
+    seeded = seeded_pix2pix(cfg)
     print(f"generator: depth {generator_depth(cfg.img_size)}, batch norm, "
           f"{sum(p.numel() for p in seeded.gen.parameters()) / 1e6:.2f} M parameters; "
           f"discriminator {sum(p.numel() for p in seeded.disc.parameters()) / 1e6:.2f} M")
@@ -1205,6 +1230,137 @@ def bench_batch_epoch(tmp: str) -> None:
           f"memory {peak:.2f} GiB")
 
 
+def extractor_rate(model, x: torch.Tensor, batch: int, tf32: bool) -> float:
+    """Images/s of the extractor's forward on ``batch`` resident 299² images
+    (median of 5 eager calls, CUDA events), TF32 on or off."""
+    xs = x[:batch]
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with torch.no_grad():
+            ms = median_ms(lambda: model(xs), reps=5)
+    finally:
+        tf32_off()
+    return batch / ms * 1e3
+
+
+def inception_flops(model) -> float:
+    """Operations of the convs of one 299² image: 2 per multiply-add."""
+    flops = []
+    hooks = [b.register_forward_hook(lambda m, inp, out: flops.append(
+        2.0 * out.numel() * m.w[0].numel())) for b in model.blocks]
+    with torch.no_grad():
+        model(torch.zeros((1, inception.SIZE, inception.SIZE, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def run_quality(tmp: str, smi: str) -> dict:
+    """Phase 12. Returns the kernel launch counts of the main-path run."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError("phase 12 writes PNGs and needs Pillow, which this machine "
+                           "lacks") from e
+    npz = os.path.join(tmp, "iv3.npz")
+    params = inception.random_params(SEED)
+    inception.save_params(params, npz)
+    cpu_model = inception.load_params(npz)
+    model = inception.load_params(npz).to("cuda")
+    for block, p in zip(cpu_model.blocks, params):
+        if not torch.equal(block.w, torch.from_numpy(p["w"].transpose(3, 2, 0, 1).copy())):
+            raise AssertionError("load_params changed the weights")
+    print(f"InceptionV3: {len(model.blocks)} conv+BN blocks, "
+          f"{sum(t.numel() for t in model.buffers()) / 1e6:.2f} M weights, seeded random, "
+          f"through {os.path.basename(npz)}")
+
+    x8 = np.random.default_rng(SEED + 11).uniform(
+        -1, 1, (8, inception.SIZE, inception.SIZE, 3)).astype(np.float32)
+    want = inception.extract_features(cpu_model, x8)
+    got = inception.extract_features(model, x8)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32 = model(torch.from_numpy(x8).to("cuda")).cpu().numpy()
+    finally:
+        tf32_off()
+    scale = float(np.abs(want).max())
+    err, err_tf32 = float(np.abs(got - want).max()), float(np.abs(tf32 - want).max())
+    print(f"pool3 features of 8 images at 299², card (TF32 off) vs CPU: max_abs_err {err:.3e} "
+          f"of a largest feature {scale:.3f} (tol {FEATURE_TOL:g} of it); with TF32 on, not a "
+          f"gate: {err_tf32:.3e}")
+    if got.shape != (8, 2048) or not np.isfinite(got).all() or err > FEATURE_TOL * scale:
+        raise AssertionError("the card's Inception features disagree with the CPU's")
+
+    argv = ["--data", tmp, "--output", tmp, "--predict", "--weights", tmp,
+            "--img-size", str(IMG_SIZE), "--channels", "1", "--dtype", "bf16"]
+    trainer = seeded_pix2pix(parse_pix2pix(argv))
+    u8 = np.random.default_rng(SEED + 12).integers(0, 256, (N_QUALITY, IMG_SIZE, IMG_SIZE, 1),
+                                                   dtype=np.uint8)
+    kernels.reset_launches()
+    pred, launches = device_launches(lambda: trainer.generate_batched(u8, chunk=BATCH))
+    host = dict(kernels.LAUNCHES)
+    passes = N_QUALITY // BATCH
+    expect = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes}
+    print(f"Pix2Pix generator (phase 9's seeded weights, bf16) on {N_QUALITY} images: launches "
+          f"counted on the card {launches}, by the wrappers {host}, expected {expect}")
+    if launches != expect or host != expect:
+        raise AssertionError("launch counts differ from the generator's structure")
+    del trainer
+    targets = np.random.default_rng(SEED + 13).integers(
+        0, 256, (N_QUALITY, IMG_SIZE, IMG_SIZE), dtype=np.uint8)
+    gen_dir, tar_dir = os.path.join(tmp, "generated"), os.path.join(tmp, "target")
+    for d in (gen_dir, tar_dir):
+        os.makedirs(d)
+    for i in range(N_QUALITY):
+        gen_u8 = np.clip((pred[i, :, :, 0] + 1.0) * 127.5, 0, 255).astype(np.uint8)
+        Image.fromarray(gen_u8).save(os.path.join(gen_dir, f"img{i}.png"))
+        Image.fromarray(targets[i]).save(os.path.join(tar_dir, f"img{i}.png"))
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = eval_quality.main(["--generated", gen_dir, "--target", tar_dir,
+                                "--img-size", str(IMG_SIZE), "--fid-weights", npz])
+    tool_s = time.perf_counter() - t0
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"eval_quality on the card, {N_QUALITY} generated vs {N_QUALITY} target PNGs at "
+          f"{IMG_SIZE}² ({tool_s:.2f} s): {json.dumps(report)}")
+    keys = {"n_images", "l1", "ssim", "psnr_db", "frechet_proxy", "fid"}
+    if rc != 0 or set(report) != keys or report["n_images"] != N_QUALITY or not all(
+            math.isfinite(report[k]) for k in keys):
+        raise AssertionError("the quality report is incomplete or not finite")
+
+    phase(f"12b. quality numbers: the Inception extractor at 299², fp32 ({smi})")
+    x = torch.rand((256, inception.SIZE, inception.SIZE, 3),
+                   generator=torch.Generator(device="cuda").manual_seed(SEED + 14),
+                   device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = {(b, tf): extractor_rate(model, x, b, tf) for tf in (False, True) for b in (64, 256)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flops = inception_flops(model)
+    for (b, tf), r in rates.items():
+        print(f"extractor forward at batch {b}, TF32 {'on (not a gate)' if tf else 'off'}: "
+              f"{r:.1f} images/s, {r * flops / 1e12:.2f} TFLOP/s in the convs ({smi})")
+    print(f"peak device memory of the extractor runs at batch 256, input included: "
+          f"{peak:.2f} GiB ({smi})")
+    print(f"device time of one forward at batch 64, TF32 off ({flops / 1e9:.2f} GFLOP of "
+          f"convs an image; fp32 peak {PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s):")
+    with torch.no_grad():
+        busy_us, _ = profile_device(lambda: model(x[:64]), calls=2)
+    print(f"  the card idle {1 - busy_us / 1e3 / (64 / rates[(64, False)] * 1e3):.1%} of the "
+          f"median forward ({smi})")
+    feats = [inception.extract_features(model, x[lo:lo + N_QUALITY])
+             for lo in (0, N_QUALITY)]
+    t0 = time.perf_counter()
+    fid = quality.frechet_distance(*feats)
+    sqrtm_s = time.perf_counter() - t0
+    print(f"the host's Fréchet distance of two sets of {N_QUALITY} 2048-d features (scipy "
+          f"sqrtm in float64): {sqrtm_s:.2f} s, FID {fid:.4f} ({smi})")
+    return launches
+
+
 def tf32_off() -> None:
     """fp32 convs and matmuls in full fp32, for the fp32 comparisons."""
     torch.backends.cudnn.allow_tf32 = False
@@ -1295,7 +1451,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         add(run_pix2pix_training(tmp))
 
-    print(f"\nlaunches on the four main paths, counted on the card: {launches}")
+    phase("12. quality slice: Inception features, Pix2Pix predictions scored on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_quality(tmp, smi))
+
+    print(f"\nlaunches on the five main paths, counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):
         raise AssertionError("a kernel of the paths was never launched")
     record = {"kernels": [

@@ -7,6 +7,7 @@ card is an error: the port never carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -26,3 +27,15 @@ def default_device() -> torch.device:
 def torch_dtype(name: str) -> torch.dtype:
     """``--dtype`` (bf16 | fp32) as a torch dtype. Parameters stay fp32."""
     return _DTYPES[name]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 convs and matmuls in full fp32 inside the block: on the card cuDNN's
+    convs default to TF32, which would make a result depend on the device."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -3,7 +3,9 @@
 The tree is gan_tpu's: ``training_checkpoints/<epoch>/``, the oldest epochs
 pruned beyond ``max_to_keep``, the latest restored. Each epoch directory holds
 one ``state.pt``: a nested dict of tensors, loaded with ``weights_only=True``.
-gan_tpu's orbax checkpoints are not readable here; a converter is later work.
+gan_tpu's orbax checkpoints are not readable here: an epoch directory without
+a ``state.pt`` raises, naming ``tools/convert_gan_tpu_checkpoint.py``, which
+turns a gan_tpu run into a checkpoint of the port.
 """
 
 from __future__ import annotations
@@ -29,9 +31,15 @@ class CheckpointManager:
     def all_epochs(self) -> list[int]:
         if not os.path.isdir(self.directory):
             return []
-        return sorted(int(d) for d in os.listdir(self.directory)
-                      if d.isdigit() and os.path.isfile(
-                          os.path.join(self.directory, d, _STATE_FILE)))
+        epochs = sorted(int(d) for d in os.listdir(self.directory) if d.isdigit())
+        foreign = [e for e in epochs
+                   if not os.path.isfile(os.path.join(self.directory, str(e), _STATE_FILE))]
+        if foreign:
+            raise ValueError(
+                f"{self.directory} holds epoch directories without {_STATE_FILE} "
+                f"({', '.join(map(str, foreign))}): a gan_tpu (orbax) checkpoint? Convert "
+                "the run with tools/convert_gan_tpu_checkpoint.py first")
+        return epochs
 
     def save(self, epoch: int, state: Any) -> None:
         """Write ``<dir>/<epoch>/state.pt`` (via a temp dir and a rename, so a

@@ -12,6 +12,15 @@ transposed conv's ``(k, k, C_out, C_in)`` becomes torch's
 and the last biases are copied as they are. ``networks_to_state_dicts``
 converts a trainer's whole ``{network: params}`` tree, such as Pix2Pix's
 ``{"gen": ..., "disc": ...}``.
+
+Optimizer state: gan_tpu keeps, per network, optax ``adam``'s
+``(ScaleByAdamState(count, mu, nu), EmptyState())``. ``mu`` and ``nu`` are
+trees like the parameters and become torch Adam's ``exp_avg`` and
+``exp_avg_sq`` through the same key path and permute; ``count`` becomes
+``step``. Both increment the count before the bias correction, so ``step =
+count`` is exact. torch numbers a network's Adam state by the order of
+``net.named_parameters()``. ``trainer_state`` converts gan_tpu's whole
+trainer state ``{"params", "opt_states"}`` into the port trainer's.
 """
 
 from __future__ import annotations
@@ -45,6 +54,26 @@ def networks_to_state_dicts(params) -> dict[str, dict[str, torch.Tensor]]:
     """gan_tpu trainer params ``{network: params}`` -> ``{network:
     state_dict}``, the ``"params"`` of a port trainer's state."""
     return {name: params_to_state_dict(tree) for name, tree in params.items()}
+
+
+def adam_state(opt_state, net: torch.nn.Module) -> dict[int, dict[str, torch.Tensor]]:
+    """One network's optax adam state -> torch Adam's per-parameter state
+    (the ``"state"`` of its ``state_dict``)."""
+    adam = opt_state[0]   # ScaleByAdamState; [1] is the EmptyState of the chain
+    mu, nu = params_to_state_dict(adam.mu), params_to_state_dict(adam.nu)
+    step = float(np.asarray(adam.count))
+    return {i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            for i, (name, _) in enumerate(net.named_parameters())}
+
+
+def trainer_state(state, nets: dict, param_groups: dict) -> dict:
+    """gan_tpu's trainer state ``{"params", "opt_states"}`` -> the port
+    trainer's, for ``load_state``. ``nets``: ``{network: module}``;
+    ``param_groups``: ``{network: the port Adam's param_groups}``."""
+    return {"params": networks_to_state_dicts(state["params"]),
+            "opt_states": {name: {"state": adam_state(state["opt_states"][name], net),
+                                  "param_groups": param_groups[name]}
+                           for name, net in nets.items()}}
 
 
 def state_dict_to_params(state_dict) -> dict:

@@ -30,6 +30,8 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
         "import gan_tpu_torch.train.optim, gan_tpu_torch.train.loop, gan_tpu_torch.utils.figs\n"
         "import gan_tpu_torch.pix2pix, gan_tpu_torch.train.pix2pix_trainer, gan_tpu_torch.ops.ssim\n"
         "import gan_tpu_torch.train.base, gan_tpu_torch.data.augment, gan_tpu_torch.data.split\n"
+        "import gan_tpu_torch.models.inception, gan_tpu_torch.quality\n"
+        "import gan_tpu_torch.tools.eval_quality\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'PIL', 'matplotlib',\n"
