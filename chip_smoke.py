@@ -103,7 +103,29 @@ Phases, each printed; any failure raises and the script exits non-zero:
     FileCache against ``predict`` over the decoded array: outputs and raw
     PNG bytes equal, S and K1 launches per generator pass, images/s with
     the raw PNGs written. The card's machine has no matplotlib, so 13d
-    draws no grids (``save_image_grid`` is stubbed).
+    draws no grids (``save_image_grid`` is stubbed);
+14. the 512² slice (the reference's published Pix2Pix run: 512², batch 4),
+    depth 8, bf16, seeded weights and uint8 caches in memory. 14a: K1 and
+    K2 against their plain versions at every 512² norm site of both models
+    at batch 4 and 1, K1 also at the predict chunk of 16, with the columns
+    of phases 3 and 6; both dtypes at the generator's 256²×64 site, whose
+    bands exceed shared memory (its plan stages nothing), with its
+    cudaOccupancyMaxActiveClusters and per-block timelines. 14b: S at every
+    512² stem shape, as in phase 4. 14c and 14d: Pix2Pix and CycleGAN
+    ``fit`` for one epoch at batch 4 (graph replays, a partial tail, a val
+    pass), with ``--remat off`` and then ``--remat on`` from the same seeded
+    state: launches counted on the card against the derivation (with remat
+    the backward recomputes each walked generator pass's stem and norms),
+    the checkpoint round trip, the two settings' losses, parameters and
+    Adam states bit for bit, one step of the remat trainer through the
+    kernels against the plain path, each setting's peak memory, graph step
+    time and idle share. 14e: predict of both models on 32 images against
+    the plain path. 14f: the remat frontier that ``use_remat`` rests on,
+    graph step ms and peak memory off and on, for Pix2Pix at 512², batch
+    1, 4, 16 and 64, CycleGAN at 512², batch 1, 4 and 16, and Pix2Pix at
+    256², batch 128. Alone, after the build: ``python3 -c "import
+    chip_smoke as c, tempfile; c.tf32_off(); c.build.build();
+    c.run_512(tempfile.mkdtemp(), 'card')"``.
 
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Only phases 12 and 13 write PNGs, into
@@ -114,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import io
 import json
 import math
@@ -132,7 +155,7 @@ import torch.nn.functional as F
 from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
 from gan_tpu_torch.data import pipeline
 from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch, single_jitter_batch
-from gan_tpu_torch.data.loader import FileCache
+from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION, FileCache, device_bytes
 from gan_tpu_torch import quality
 from gan_tpu_torch.models import blocks, inception
 from gan_tpu_torch.models.unet import _DOWN_FILTERS, _UP_SPECS
@@ -142,7 +165,7 @@ from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 from gan_tpu_torch.tools import eval_quality
-from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
+from gan_tpu_torch.train.pix2pix_trainer import REMAT_FREE_PEAK, Pix2PixTrainer, use_remat
 
 IMG_SIZE = 256
 BATCH = 16          # generate_batched's chunk
@@ -209,18 +232,52 @@ SOURCES = {"instance_norm_fwd": "gan_tpu_torch/csrc/instance_norm.cu",
 REPLACES = {"instance_norm_fwd": "gan_tpu/ops/pallas_kernels.py:89",
             "instance_norm_bwd": "gan_tpu/ops/pallas_kernels.py:128",
             "stem_conv": "benchmarks/pallas_stem_proto.py:46"}
-DISC_NORM_SITES = ((64, 128), (32, 256), (31, 512))   # the PatchGAN's at 256²
 CYCLEGAN_STEMS_PER_STEP = 10   # 6 generator and 4 discriminator forwards
 PIX2PIX_STEMS_PER_STEP = 3   # G(x), D(x, y), D(x, G(x)): one stem each
-# (batch, C_in) of every stem the paths run at 256², and what runs it
-STEM_SHAPES = {(P2P_BATCH, 1): "Pix2Pix G, train step",
-               (P2P_BATCH, 2): "Pix2Pix D on (input, target), train step",
-               (BATCH, 1): "predict chunk, both models",
-               (TRAIN_BATCH, 1): "CycleGAN G and D, train step",
-               (TRAIN_BATCH, 3): "3-channel G and CycleGAN D",
-               (TRAIN_BATCH, 6): "3-channel Pix2Pix D"}
-# the training shapes, and whether their step needs dx (D's input holds the fake)
-STEM_TRAIN_SHAPES = {(P2P_BATCH, 1): False, (P2P_BATCH, 2): True, (TRAIN_BATCH, 1): True}
+# generator passes that one CycleGAN train step's backward walks (see
+# train_step_launches); with --remat each walk recomputes its pass's blocks
+CYCLEGAN_WALKED_PASSES = 2 * 4
+# phase 14: the 512² configuration, the reference's one published Pix2Pix run
+# (512², batch 4, SURVEY.md:460); CycleGAN at the same batch
+IMG_512 = 512
+BATCH_512 = 4
+N_512_TRAIN, N_512_VAL = 13, 6   # 3 full steps + a 1-row tail; 1 full step + 2 rows
+N_512_X, N_512_Y = 10, 12        # 2 full steps + a zip tail of 2 X and 4 Y rows
+# (model, image size, batch) of the remat frontier (14f), off and on
+FRONTIER = (("pix2pix", IMG_512, 1), ("pix2pix", IMG_512, 4), ("pix2pix", IMG_512, 16),
+            ("pix2pix", IMG_512, 64), ("cyclegan", IMG_512, 1), ("cyclegan", IMG_512, 4),
+            ("cyclegan", IMG_512, 16), ("pix2pix", IMG_SIZE, P2P_BENCH_BATCH))
+FRONTIER_STEPS = 3   # graph steps per timed epoch of the frontier
+
+
+def disc_norm_sites(img_size: int) -> tuple:
+    """(H = W, C) of each norm in the PatchGAN, in call order: down_1 at
+    img/4, down_2 at img/8, the 512-channel conv's VALID output at img/8 − 1."""
+    return ((img_size // 4, 128), (img_size // 8, 256), (img_size // 8 - 1, 512))
+
+
+DISC_NORM_SITES = disc_norm_sites(IMG_SIZE)
+
+
+def stem_shapes(img_size: int) -> dict:
+    """(batch, C_in) of every stem the paths run at ``img_size`` (256 or
+    512) -> (what runs it, the gradient its training step takes: None for a
+    forward only, False for dw, True for dx and dw, since D's input holds
+    the fake)."""
+    if img_size == IMG_SIZE:
+        return {(P2P_BATCH, 1): ("Pix2Pix G, train step", False),
+                (P2P_BATCH, 2): ("Pix2Pix D on (input, target), train step", True),
+                (BATCH, 1): ("predict chunk, both models", None),
+                (TRAIN_BATCH, 1): ("CycleGAN G and D, train step", True),
+                (TRAIN_BATCH, 3): ("3-channel G and CycleGAN D", None),
+                (TRAIN_BATCH, 6): ("3-channel Pix2Pix D", None)}
+    return {(BATCH_512, 1): ("Pix2Pix G, CycleGAN G and D, train step", True),
+            (BATCH_512, 2): ("Pix2Pix D on (input, target), train step", True),
+            (BATCH, 1): ("predict chunk, both models", None),
+            (1, 1): ("Pix2Pix G at batch 1", False),
+            (1, 2): ("Pix2Pix D at batch 1", True),
+            (BATCH_512, 3): ("3-channel G and CycleGAN D", None),
+            (BATCH_512, 6): ("3-channel Pix2Pix D", None)}
 
 
 _STARTED = time.perf_counter()
@@ -238,7 +295,7 @@ def norm_sites(img_size: int, depth: int) -> list[tuple[int, int]]:
     return down + up
 
 
-def train_step_launches(gen_norms: int, disc_norms: int) -> tuple[int, int]:
+def train_step_launches(gen_norms: int, disc_norms: int, remat: bool = False) -> tuple[int, int]:
     """(K1, K2) launches of one CycleGAN train step, from its structure.
 
     K1: every norm of the 6 generator and 4 discriminator forwards. K2: one
@@ -247,8 +304,42 @@ def train_step_launches(gen_norms: int, disc_norms: int) -> tuple[int, int]:
       gen_g: D_y(fake_y), G(x), F(fake_y) back to fake_y, G(fake_x), G(y);
       gen_f: D_x(fake_x), F(y), G(fake_x) back to fake_x, F(fake_y), F(x);
       disc_x, disc_y: D on the real and on the fake batch (stopping at it).
+    With ``remat`` each of those CYCLEGAN_WALKED_PASSES generator walks
+    first recomputes the pass's checkpointed blocks (a walk is its own graph
+    task, so a pass walked by both generators is recomputed twice): their
+    norms run K1 once more; K2 is unchanged.
     """
-    return 6 * gen_norms + 4 * disc_norms, 2 * (4 * gen_norms + disc_norms) + 2 * 2 * disc_norms
+    k1 = 6 * gen_norms + 4 * disc_norms + (CYCLEGAN_WALKED_PASSES * gen_norms if remat else 0)
+    return k1, 2 * (4 * gen_norms + disc_norms) + 2 * 2 * disc_norms
+
+
+def cyclegan_launches(img_size: int, remat: bool = False) -> tuple[dict, dict]:
+    """Each kernel's launches in one CycleGAN train step and in one val
+    step at ``img_size``: the norms as ``train_step_launches`` derives them,
+    a stem per network forward, and with ``remat`` a stem per recomputed
+    generator walk."""
+    gen, disc = len(norm_sites(img_size, generator_depth(img_size))), len(disc_norm_sites(img_size))
+    k1, k2 = train_step_launches(gen, disc, remat)
+    stems = CYCLEGAN_STEMS_PER_STEP + (CYCLEGAN_WALKED_PASSES if remat else 0)
+    return ({"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": stems},
+            {"instance_norm_fwd": 6 * gen + 4 * disc, "instance_norm_bwd": 0,
+             "stem_conv": CYCLEGAN_STEMS_PER_STEP})
+
+
+def pix2pix_launches(img_size: int, batch: int, training: bool, remat: bool = False) -> dict:
+    """Each kernel's launches in one Pix2Pix step of ``batch`` rows: a stem
+    for G and one for each D pass. Batch norm runs K1 only on a batch of
+    one, per image, at G's norms and at each D pass's; a train step then
+    runs K2 through every norm on a path to a network's parameters: G's and
+    D(x, fake)'s for the generator, both D passes' for the discriminator.
+    With ``remat`` the generator's backward first recomputes G's blocks:
+    its stem, and on a batch of one its norms, once more."""
+    gen, disc = len(norm_sites(img_size, generator_depth(img_size))), len(disc_norm_sites(img_size))
+    per_image = batch == 1
+    recompute = remat and training
+    return {"instance_norm_fwd": (gen + 2 * disc + (gen if recompute else 0)) if per_image else 0,
+            "instance_norm_bwd": gen + 3 * disc if per_image and training else 0,
+            "stem_conv": PIX2PIX_STEMS_PER_STEP + (1 if recompute else 0)}
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -411,6 +502,37 @@ def print_timeline(fn, plan, backward: bool) -> None:
           f"(min, median, max), the launch spans {span:.2f} us", flush=True)
 
 
+K1_HEADER = (f"{'N,H,W,C':>18} {'dtype':>9} {'act':>10} {'eps':>6} {'max_abs_err':>12} "
+             f"{'tol(atol,rtol)':>16} {'plan':>14} {'kernel_us':>10} {'plain_us':>10} "
+             f"{'library_us':>10} {'bound_us':>9} {'share':>7} {'k/lib':>6}")
+
+
+def k1_row(n: int, hw: int, c: int, dtype, act, eps, g) -> tuple[float, tuple]:
+    """K1 against its plain version on seeded (n, hw, hw, c) inputs, and the
+    device time of both, of the library and the bound; prints one row of
+    K1_HEADER. Returns the largest error and (kernel, plain, library,
+    bound) ms."""
+    plan = kernels.norm_plan(n, hw * hw, c, dtype)
+    x = (torch.randn(n, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
+    scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
+    offset = 0.1 * torch.randn(c, device="cuda", generator=g)
+    got = kernels.instance_norm(x, scale, offset, act=act, eps=eps)
+    torch.cuda.synchronize()
+    want = norm.instance_norm(x, scale, offset, act=act, eps=eps)
+    err = (got.float() - want.float()).abs().max().item()
+    atol, rtol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    k_ms = device_ms(lambda: kernels.instance_norm(x, scale, offset, act=act, eps=eps))
+    p_ms = device_ms(lambda: norm.instance_norm(x, scale, offset, act=act, eps=eps))
+    lib_ms = device_ms(lambda: library_fwd(x, scale, offset, act, eps))
+    b_ms, _ = bound_ms(2 * x.numel() * x.element_size())
+    print(f"{f'{n},{hw},{hw},{c}':>18} {str(dtype)[6:]:>9} {str(act):>10} "
+          f"{eps:>6g} {err:>12.3e} {f'{atol:g},{rtol:g}':>16} {_plan_str(plan):>14} "
+          f"{k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} "
+          f"{b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} {k_ms / lib_ms:>6.2f}", flush=True)
+    return err, (k_ms, p_ms, lib_ms, b_ms)
+
+
 def check_kernel(sites) -> dict:
     """Phase 3. Returns per-shape times and the largest error. Rows with
     eps 1e-3 are per-image batch norm (Pix2Pix's predict). plan: blocks per
@@ -420,32 +542,12 @@ def check_kernel(sites) -> dict:
     shapes = sorted(set(sites))
     times, worst = {}, 0.0
     print(L2_NOTE)
-    print(f"{'N,H,W,C':>18} {'dtype':>9} {'act':>10} {'eps':>6} {'max_abs_err':>12} "
-          f"{'tol(atol,rtol)':>16} {'plan':>14} {'kernel_us':>10} {'plain_us':>10} "
-          f"{'library_us':>10} {'bound_us':>9} {'share':>7} {'k/lib':>6}")
+    print(K1_HEADER)
     for hw, c in shapes:
         for dtype in (torch.float32, torch.bfloat16):
-            plan = kernels.norm_plan(BATCH, hw * hw, c, dtype)
             for act, eps in [(act, norm.IN_EPS) for act in norm.ACTS] + [(None, norm.BN_EPS)]:
-                x = (torch.randn(BATCH, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
-                scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
-                offset = 0.1 * torch.randn(c, device="cuda", generator=g)
-                got = kernels.instance_norm(x, scale, offset, act=act, eps=eps)
-                torch.cuda.synchronize()
-                want = norm.instance_norm(x, scale, offset, act=act, eps=eps)
-                err = (got.float() - want.float()).abs().max().item()
-                atol, rtol = KERNEL_TOL[dtype]
-                torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+                err, times[(hw, c, dtype, act, eps)] = k1_row(BATCH, hw, c, dtype, act, eps, g)
                 worst = max(worst, err)
-                k_ms = device_ms(lambda: kernels.instance_norm(x, scale, offset, act=act, eps=eps))
-                p_ms = device_ms(lambda: norm.instance_norm(x, scale, offset, act=act, eps=eps))
-                lib_ms = device_ms(lambda: library_fwd(x, scale, offset, act, eps))
-                b_ms, _ = bound_ms(2 * x.numel() * x.element_size())
-                times[(hw, c, dtype, act, eps)] = (k_ms, p_ms, lib_ms, b_ms)
-                print(f"{f'{BATCH},{hw},{hw},{c}':>18} {str(dtype)[6:]:>9} {str(act):>10} "
-                      f"{eps:>6g} {err:>12.3e} {f'{atol:g},{rtol:g}':>16} {_plan_str(plan):>14} "
-                      f"{k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} "
-                      f"{b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} {k_ms / lib_ms:>6.2f}", flush=True)
     hw, c = max(shapes, key=lambda s: s[0] * s[0] * s[1])
     print_max_clusters(BATCH, hw, c, backward=False)
     print(f"plans at {BATCH},{hw},{hw},{c} bf16, K1:")
@@ -481,9 +583,10 @@ def _stem_plan_str(plan) -> str:
     return f"{plan.rows_per_block}/{plan.warps}/{plan.pitch}/{plan.vec}/{plan.smem_bytes}"
 
 
-def check_stem() -> dict:
-    """Phase 4: S against its plain version at every stem shape of the
-    paths, forward in both dtypes and backward at the training shapes, with
+def check_stem(img_size: int = IMG_SIZE) -> dict:
+    """Phase 4 (and 14b at 512²): S against its plain version at every stem
+    shape of the paths at ``img_size``, forward in both dtypes and backward
+    at the training shapes, with
     each launch's plan (rows/warps/pitch/vec/shared bytes), the share of
     the bound and the kernel/library ratio; first the HMMA count of each
     stem kernel's SASS (the bf16 route must have tensor-core instructions).
@@ -501,9 +604,9 @@ def check_stem() -> dict:
     print(f"{'N,H,W,C_in':>16} {'dtype':>9} {'max_abs_err':>12} {'tol(atol,rtol)':>20} "
           f"{'plan':>22} {'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9} "
           f"{'share':>7} {'k/lib':>6} {'dx_rel':>9} {'dw_rel':>9}  path")
-    for (n, c_in), use in STEM_SHAPES.items():
+    for (n, c_in), (use, train) in stem_shapes(img_size).items():
         for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.rand(n, IMG_SIZE, IMG_SIZE, c_in, device="cuda", generator=g) * 2 - 1).to(dtype)
+            x = (torch.rand(n, img_size, img_size, c_in, device="cuda", generator=g) * 2 - 1).to(dtype)
             w = (0.02 * torch.randn(64, c_in, 4, 4, device="cuda", generator=g)).to(
                 memory_format=torch.channels_last)   # as the models keep it
             got = kernels.stem_conv(x, w, compute_dtype=dtype)
@@ -514,8 +617,8 @@ def check_stem() -> dict:
             err = (got.float() - want.float()).abs().max().item()
             worst = max(worst, err)
             grads = ["", ""]
-            if (n, c_in) in STEM_TRAIN_SHAPES:
-                needs_dx = STEM_TRAIN_SHAPES[n, c_in]
+            if train is not None:
+                needs_dx = train
                 dy = torch.randn(got.shape, device="cuda", generator=g).to(dtype)
                 res = []
                 for fn in (kernels.stem_conv, conv.stem_conv):
@@ -537,8 +640,8 @@ def check_stem() -> dict:
             b_ms, by = bound_ms(nbytes, 2.0 * got.numel() * 16 * c_in, dtype)
             times[(n, c_in, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
             bound_by[(n, c_in, dtype)] = by
-            plan = kernels.stem_plan(n, IMG_SIZE, IMG_SIZE, c_in, dtype)
-            print(f"{f'{n},{IMG_SIZE},{IMG_SIZE},{c_in}':>16} {str(dtype)[6:]:>9} {err:>12.3e} "
+            plan = kernels.stem_plan(n, img_size, img_size, c_in, dtype)
+            print(f"{f'{n},{img_size},{img_size},{c_in}':>16} {str(dtype)[6:]:>9} {err:>12.3e} "
                   f"{f'{atol:g},{rtol:g}':>20} {_stem_plan_str(plan):>22} {k_ms * 1e3:>10.2f} "
                   f"{p_ms * 1e3:>10.2f} {lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} "
                   f"{b_ms / k_ms:>7.1%} {k_ms / lib_ms:>6.2f} {grads[0]:>9} {grads[1]:>9}  "
@@ -546,47 +649,59 @@ def check_stem() -> dict:
     return {"times": times, "bound_by": bound_by, "max_abs_err": worst}
 
 
+K2_HEADER = (f"{'N,H,W,C':>18} {'dtype':>9} {'dx_err':>10} {'dscale_err':>10} "
+             f"{'doffset_err':>11} {'tol(dx;sums)':>20} {'k1_err':>9} {'plan':>14} "
+             f"{'kernel_us':>10} {'plain_us':>10} {'library_us':>10} {'bound_us':>9} "
+             f"{'share':>7} {'k/lib':>6}")
+
+
+def k2_row(n: int, hw: int, c: int, dtype, g) -> tuple[float, tuple]:
+    """K2 (and K1) against the plain versions on seeded (n, hw, hw, c)
+    inputs, and K2's device time, the plain version's, the library's
+    backward and the bound; prints one row of K2_HEADER. Returns K2's largest
+    error and (kernel, plain, library, bound) ms."""
+    shape = (n, hw, hw, c)
+    plan = kernels.norm_plan(n, hw * hw, c, dtype, backward=True)
+    x = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
+    scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
+    offset = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    got = kernels.instance_norm_backward(x, scale, dy)
+    y = kernels.instance_norm(x, scale, offset)
+    torch.cuda.synchronize()
+    want = norm.instance_norm_backward(x, scale, dy)
+    atol, rtol = KERNEL_TOL[dtype]
+    s_tol = sums_tol(n * hw * hw)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=s_tol, rtol=1e-5)
+    y_want = norm.instance_norm(x, scale, offset)
+    torch.testing.assert_close(y.float(), y_want.float(), atol=atol, rtol=rtol)
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    k1_err = (y.float() - y_want.float()).abs().max().item()
+    k_ms = device_ms(lambda: kernels.instance_norm_backward(x, scale, dy))
+    p_ms = device_ms(lambda: norm.instance_norm_backward(x, scale, dy))
+    lib_ms = library_bwd_ms(x, scale, offset, dy)
+    b_ms, _ = bound_ms(3 * x.numel() * x.element_size())
+    print(f"{','.join(map(str, shape)):>18} {str(dtype)[6:]:>9} {errs[0]:>10.3e} "
+          f"{errs[1]:>10.3e} {errs[2]:>11.3e} {f'{atol:g},{rtol:g};{s_tol:.3g}':>20} "
+          f"{k1_err:>9.2e} {_plan_str(plan):>14} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} "
+          f"{lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} "
+          f"{k_ms / lib_ms:>6.2f}", flush=True)
+    return max(errs), (k_ms, p_ms, lib_ms, b_ms)
+
+
 def check_backward(shapes) -> dict:
-    """Phase 6: K2 (and K1) against the plain versions at batch 8. Returns
+    """Phase 6: K2 (and K1) against their plain versions at batch 8. Returns
     per-shape K2 times and the largest error. Columns as in phase 3."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     times, worst = {}, 0.0
     print(L2_NOTE)
-    print(f"{'N,H,W,C':>18} {'dtype':>9} {'dx_err':>10} {'dscale_err':>10} {'doffset_err':>11}"
-          f" {'tol(dx;sums)':>20} {'k1_err':>9} {'plan':>14} {'kernel_us':>10} {'plain_us':>10}"
-          f" {'library_us':>10} {'bound_us':>9} {'share':>7} {'k/lib':>6}")
+    print(K2_HEADER)
     for hw, c in shapes:
-        shape = (TRAIN_BATCH, hw, hw, c)
         for dtype in (torch.float32, torch.bfloat16):
-            plan = kernels.norm_plan(TRAIN_BATCH, hw * hw, c, dtype, backward=True)
-            x = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 1.0).to(dtype)
-            scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
-            offset = 0.1 * torch.randn(c, device="cuda", generator=g)
-            dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
-            got = kernels.instance_norm_backward(x, scale, dy)
-            y = kernels.instance_norm(x, scale, offset)
-            torch.cuda.synchronize()
-            want = norm.instance_norm_backward(x, scale, dy)
-            atol, rtol = KERNEL_TOL[dtype]
-            s_tol = sums_tol(TRAIN_BATCH * hw * hw)
-            torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
-            for a, b in zip(got[1:], want[1:]):
-                torch.testing.assert_close(a, b, atol=s_tol, rtol=1e-5)
-            y_want = norm.instance_norm(x, scale, offset)
-            torch.testing.assert_close(y.float(), y_want.float(), atol=atol, rtol=rtol)
-            errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
-            k1_err = (y.float() - y_want.float()).abs().max().item()
-            worst = max(worst, *errs)
-            k_ms = device_ms(lambda: kernels.instance_norm_backward(x, scale, dy))
-            p_ms = device_ms(lambda: norm.instance_norm_backward(x, scale, dy))
-            lib_ms = library_bwd_ms(x, scale, offset, dy)
-            b_ms, _ = bound_ms(3 * x.numel() * x.element_size())
-            times[(hw, c, dtype)] = (k_ms, p_ms, lib_ms, b_ms)
-            print(f"{','.join(map(str, shape)):>18} {str(dtype)[6:]:>9} {errs[0]:>10.3e} "
-                  f"{errs[1]:>10.3e} {errs[2]:>11.3e} {f'{atol:g},{rtol:g};{s_tol:.3g}':>20} "
-                  f"{k1_err:>9.2e} {_plan_str(plan):>14} {k_ms * 1e3:>10.2f} {p_ms * 1e3:>10.2f} "
-                  f"{lib_ms * 1e3:>10.2f} {b_ms * 1e3:>9.2f} {b_ms / k_ms:>7.1%} "
-                  f"{k_ms / lib_ms:>6.2f}", flush=True)
+            err, times[(hw, c, dtype)] = k2_row(TRAIN_BATCH, hw, c, dtype, g)
+            worst = max(worst, err)
     hw, c = max(shapes, key=lambda s: s[0] * s[0] * s[1])
     print_max_clusters(TRAIN_BATCH, hw, c, backward=True)
     print(f"plans at {TRAIN_BATCH},{hw},{hw},{c} bf16, K2:")
@@ -739,7 +854,9 @@ def _restore_checked(trainer, weights: str, seeded) -> None:
 def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
     """``generate_batched`` on the kernel path (with its launches counted,
     the norm sites' shapes recorded), against the plain path in bf16 and in
-    fp32, then the predict rate. Returns the launches and the output."""
+    fp32, then the predict rate, at the size of the images ``u8``. Returns
+    the launches and the output."""
+    size = u8.shape[1]
     seen = set()
     for m in trainer.sampler.modules():
         if isinstance(m, norm_type):
@@ -753,10 +870,10 @@ def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
           f"generator passes, expected {want}; by the wrappers: {host}")
     if launches != want or host != want:
         raise AssertionError("launch counts differ from the generator's structure")
-    want_sites = {(hw, hw, c) for hw, c in norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))}
+    want_sites = {(hw, hw, c) for hw, c in norm_sites(size, generator_depth(size))}
     if seen != want_sites:
         raise AssertionError(f"norm shapes {sorted(seen)} != compared {sorted(want_sites)}")
-    if pred.shape != (u8.shape[0], IMG_SIZE, IMG_SIZE, 1) or pred.dtype != np.float32:
+    if pred.shape != (u8.shape[0], size, size, 1) or pred.dtype != np.float32:
         raise AssertionError(f"output {pred.shape} {pred.dtype}")
     if not (np.isfinite(pred).all() and np.abs(pred).max() <= 1.0):
         raise AssertionError("output not finite or outside [-1, 1]")
@@ -777,7 +894,7 @@ def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
         trainer.generate_batched(u8, chunk=BATCH)
         runs.append(time.perf_counter() - t0)
     e2e = float(np.median(runs))
-    print(f"predict {u8.shape[0]} images at {IMG_SIZE}² bf16: {e2e * 1e3:.2f} ms "
+    print(f"predict {u8.shape[0]} images at {size}² bf16: {e2e * 1e3:.2f} ms "
           f"(runs {[round(r * 1e3, 2) for r in runs]}), {u8.shape[0] / e2e:.2f} images/s, "
           f"{e2e / passes * 1e3:.2f} ms per batch of {BATCH}")
     return launches, pred
@@ -926,20 +1043,24 @@ def check_fit(trainer, make_trainer, fit, want: dict, want_host: dict, want_epoc
     return launches, peak
 
 
-def epoch_plan_counts(per_train: dict, per_val: dict, train: tuple, val: tuple):
+def epoch_plan_counts(per_train: dict, per_val: dict, train: tuple, val: tuple,
+                      tails: tuple | None = None):
     """What one epoch of ``fit`` should run, from (full steps, tail rows) of
     the train and the val epoch: the card runs every step's kernels
-    (``per_train``, ``per_val`` per step); the host traces them only where a
-    runner runs its first step eagerly (the capture's warm-up), captures it,
-    or runs a tail; the other full steps are replays. Returns the device
-    launches, the wrappers' launches and the runners' counts."""
+    (``per_train``, ``per_val`` per full step; ``tails``, a (train, val)
+    pair, per tail step where a tail runs other kernels, as Pix2Pix's
+    batch of one does); the host traces them only where a runner runs its
+    first step eagerly (the capture's warm-up), captures it, or runs a
+    tail; the other full steps are replays. Returns the device launches,
+    the wrappers' launches and the runners' counts."""
     ran = {n: 0 for n in per_train}
     traced = {n: 0 for n in per_train}
     counts = {"eager": 0, "captures": 0, "replays": 0}
-    for per, (full, tail) in ((per_train, train), (per_val, val)):
+    for per, tail_per, (full, tail) in zip((per_train, per_val), tails or (per_train, per_val),
+                                           (train, val)):
         for n in per:
-            ran[n] += per[n] * (full + (tail > 0))
-            traced[n] += per[n] * ((2 if full else 0) + (tail > 0))
+            ran[n] += per[n] * full + tail_per[n] * (tail > 0)
+            traced[n] += per[n] * (2 if full else 0) + tail_per[n] * (tail > 0)
         if full:
             counts["eager"] += 1
             counts["captures"] += 1
@@ -1075,16 +1196,13 @@ def run_training(tmp: str) -> dict:
 
     train_steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     val_steps = -(-N_VAL // TRAIN_BATCH)
-    k1, k2 = train_step_launches(len(norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))),
-                                 len(DISC_NORM_SITES))
+    per_train, per_val = cyclegan_launches(IMG_SIZE)
     want, want_host, want_epoch = epoch_plan_counts(
-        {"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
-        {"instance_norm_fwd": k1, "instance_norm_bwd": 0, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
-        divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH), divmod(N_VAL, TRAIN_BATCH))
+        per_train, per_val, divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
+        divmod(N_VAL, TRAIN_BATCH))
     print(f"1 epoch: {train_steps} train steps (the last a zip tail of "
           f"{N_TRAIN_X - (train_steps - 1) * TRAIN_BATCH} X and {TRAIN_BATCH} Y rows) and "
-          f"{val_steps} val steps; per train step {k1} K1, {k2} K2 and "
-          f"{CYCLEGAN_STEMS_PER_STEP} S, per val step {k1} K1 and {CYCLEGAN_STEMS_PER_STEP} S")
+          f"{val_steps} val steps; per train step {per_train}, per val step {per_val}")
 
     def fit():
         with mock.patch.object(kernels.InstanceNormFunction, "backward",
@@ -1170,8 +1288,7 @@ def run_pix2pix_training(tmp: str) -> dict:
     test = rng.integers(0, 256, (1, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
     mgr = CheckpointManager(os.path.join(tmp, "training_checkpoints"), max_to_keep=1)
     train_steps, val_steps = -(-N_P2P_TRAIN // P2P_BATCH), -(-N_P2P_VAL // P2P_BATCH)
-    per_step = {"instance_norm_fwd": 0, "instance_norm_bwd": 0,
-                "stem_conv": PIX2PIX_STEMS_PER_STEP}
+    per_step = pix2pix_launches(IMG_SIZE, P2P_BATCH, True)
     want, want_host, want_epoch = epoch_plan_counts(
         per_step, per_step, divmod(N_P2P_TRAIN, P2P_BATCH), divmod(N_P2P_VAL, P2P_BATCH))
     print(f"1 epoch: {train_steps} train steps (the last of {N_P2P_TRAIN % P2P_BATCH} rows) and "
@@ -1416,27 +1533,30 @@ def recorded_epochs(trainer) -> list:
     return seen
 
 
-def compare_streamed(streamed, resident, got: list, want: list) -> None:
-    """The streamed epochs' losses, every network's parameters and buffers
-    and Adam's state against the resident epochs' from the same start, bit
-    for bit: both run the same kernels on the same bytes in the same order,
-    so any difference is a fault, such as a step that read a stale or the
-    next batch from the stream's buffers."""
+def compare_epochs(first, second, got: list, want: list, what: str) -> None:
+    """The epochs' losses (``got`` of ``first``, ``want`` of ``second``),
+    every network's parameters and buffers and Adam's state of two trainers
+    that ran them from the same start, bit for bit. Streamed against
+    resident epochs (phase 13), and remat against remat-free epochs (14c,
+    14d), run the same kernels on the same bytes in the same order, so any
+    difference is a fault: a step that read a stale or the next batch from
+    the stream's buffers, or a recomputed block that read another input or
+    dropout mask than its forward."""
     if [g.shape for g in got] != [w.shape for w in want]:
-        raise AssertionError("the streamed epochs ran other steps than the resident ones")
-    pairs = [(f"{k}.{name}", a, b) for k in streamed.nets
-             for (name, a), b in zip(streamed.nets[k].state_dict().items(),
-                                     resident.nets[k].state_dict().values())]
-    for k in streamed.opts:
-        sa, sb = streamed.opts[k].state_dict()["state"], resident.opts[k].state_dict()["state"]
+        raise AssertionError(f"{what}: the epochs ran other steps")
+    pairs = [(f"{k}.{name}", a, b) for k in first.nets
+             for (name, a), b in zip(first.nets[k].state_dict().items(),
+                                     second.nets[k].state_dict().values())]
+    for k in first.opts:
+        sa, sb = first.opts[k].state_dict()["state"], second.opts[k].state_dict()["state"]
         pairs += [(f"{k} Adam {i}.{n}", v, sb[i][n]) for i in sa for n, v in sa[i].items()]
     differ = [name for name, a, b in pairs if not torch.equal(a, b)]
     loss_diff = max(float(np.max(np.abs(g - w))) for g, w in zip(got, want))
-    print(f"streamed vs resident epochs (train, val): steps {[len(g) for g in got]}; losses max "
-          f"|difference| {loss_diff:.3e}; {len(pairs) - len(differ)} of {len(pairs)} parameter, "
-          f"buffer and Adam tensors equal bit for bit")
+    print(f"{what} (train, val): steps {[len(g) for g in got]}; losses max |difference| "
+          f"{loss_diff:.3e}; {len(pairs) - len(differ)} of {len(pairs)} parameter, buffer and "
+          f"Adam tensors equal bit for bit")
     if not all(np.array_equal(g, w) for g, w in zip(got, want)) or differ:
-        raise AssertionError(f"the streamed epoch differs from the resident epoch: {differ[:8]}")
+        raise AssertionError(f"{what}: the epochs differ: {differ[:8]}")
 
 
 STREAM_ROUNDS = 3   # rounds of timed train epochs per path in 13b and 13c, each in turns and back
@@ -1589,8 +1709,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
     val_u8 = pipeline.build_pix2pix_cache(pairs[:N_P2P_VAL], train=False, **p2p)
     test = val_u8[:1]
     got = recorded_epochs(streamed)
-    per_step = {"instance_norm_fwd": 0, "instance_norm_bwd": 0,
-                "stem_conv": PIX2PIX_STEMS_PER_STEP}
+    per_step = pix2pix_launches(IMG_SIZE, P2P_BATCH, True)
     want, want_host, want_epoch = epoch_plan_counts(
         per_step, per_step, divmod(N_P2P_TRAIN, P2P_BATCH), divmod(N_P2P_VAL, P2P_BATCH))
     kernels.reset_launches()
@@ -1606,7 +1725,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
     train_dev, val_dev = (torch.from_numpy(a).to("cuda") for a in (train_u8, val_u8))
     want_losses = [resident.run_epoch(train_dev, 0, training=True),
                    resident.run_epoch(val_dev, 0, training=False)]
-    compare_streamed(streamed, resident, got, want_losses)
+    compare_epochs(streamed, resident, got, want_losses, "streamed vs resident epochs")
     steps = -(-N_P2P_TRAIN // P2P_BATCH)
     from_host = lambda: streamed.run_epoch(train_u8, 1, training=True)
     from_files = lambda: streamed.run_epoch(p2p_train, 1, training=True)
@@ -1632,12 +1751,9 @@ def run_host_data(tmp: str, smi: str) -> dict:
     val_u8 = [pipeline.build_cyclegan_cache(paths[:N_VAL], img_size=IMG_SIZE, channels=1)
               for paths in (xs, ys)]
     got = recorded_epochs(streamed)
-    k1, k2 = train_step_launches(len(norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))),
-                                 len(DISC_NORM_SITES))
     want, want_host, want_epoch = epoch_plan_counts(
-        {"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
-        {"instance_norm_fwd": k1, "instance_norm_bwd": 0, "stem_conv": CYCLEGAN_STEMS_PER_STEP},
-        divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH), divmod(N_VAL, TRAIN_BATCH))
+        *cyclegan_launches(IMG_SIZE), divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
+        divmod(N_VAL, TRAIN_BATCH))
     kernels.reset_launches()
     _, counted = device_launches(lambda: streamed.fit(cg_x, cg_y, *val, val_u8[0][:1], tmp))
     host = dict(kernels.LAUNCHES)
@@ -1651,7 +1767,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
     val_dev = [torch.from_numpy(a).to("cuda") for a in val_u8]
     want_losses = [resident.run_epoch(*train_dev, 0, training=True),
                    resident.run_epoch(*val_dev, 0, training=False)]
-    compare_streamed(streamed, resident, got, want_losses)
+    compare_epochs(streamed, resident, got, want_losses, "streamed vs resident epochs")
     steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     from_host = lambda: streamed.run_epoch(x_u8, y_u8, 1, training=True)
     from_files = lambda: streamed.run_epoch(cg_x, cg_y, 1, training=True)
@@ -1686,6 +1802,287 @@ def run_host_data(tmp: str, smi: str) -> dict:
         pipeline.build_cyclegan_cache(xs[:N_QUALITY], img_size=IMG_SIZE, channels=1),
         [os.path.basename(p) for p in xs[:N_QUALITY]], os.path.join(tmp, "cg_predict"),
         per_pass))
+    return launches
+
+
+def gan_config(kind: str, tmp: str, size: int, batch: int, remat: str, dtype: str = "bf16"):
+    """The ``--train`` config of ``kind`` ('pix2pix' or 'cyclegan') for one epoch."""
+    common = ["--output", tmp, "--train", "--epochs", "1", "--img-size", str(size),
+              "--batch-size", str(batch), "--dtype", dtype, "--remat", remat]
+    if kind == "pix2pix":
+        return parse_pix2pix(["--data", tmp, *common])
+    return parse_cyclegan(["--input-images", tmp, "--target-images", tmp, *common])
+
+
+def seeded_trainer(kind: str, cfg):
+    """The trainer's seeded init, with seeded norm offsets and betas."""
+    trainer = (Pix2PixTrainer if kind == "pix2pix" else CycleGANTrainer)(cfg)
+    offsets_from_seed(trainer)
+    return trainer
+
+
+def train_caches(kind: str, n: tuple, size: int, rng) -> tuple:
+    """Seeded uint8 train caches at ``size`` + 30 (Pix2Pix: ``n[0]`` pairs;
+    CycleGAN: ``n[0]`` X and ``n[1]`` Y images)."""
+    pad = size + 30
+    if kind == "pix2pix":
+        return (rng.integers(0, 256, (n[0], 2, pad, pad, 1), dtype=np.uint8),)
+    return tuple(rng.integers(0, 256, (m, pad, pad, 1), dtype=np.uint8) for m in n)
+
+
+def check_norms_512() -> None:
+    """14a: K1 and K2 against their plain versions at every norm site of
+    the 512² paths, bf16 (both dtypes at the generator's 256²×64 site, the
+    unstaged one): K1 and K2 at the training batch of 4 (ε 1e-5, CycleGAN)
+    and at batch 1 (K1 at ε 1e-3, Pix2Pix's per-image batch norm), K1 at
+    the predict chunk of 16 at the generator's sites; at the unstaged site,
+    cudaOccupancyMaxActiveClusters and each kernel's per-block timeline;
+    then the sums over one generator pass (K1, 14 sites) and one generator
+    and one discriminator backward (K2, 17 sites) at batch 4, and over one
+    generator pass at 16, in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    gen, disc = norm_sites(IMG_512, generator_depth(IMG_512)), disc_norm_sites(IMG_512)
+    unstaged = (IMG_512 // 2, _DOWN_FILTERS[0])
+    dtypes = lambda site: ((torch.float32, torch.bfloat16) if site == unstaged
+                           else (torch.bfloat16,))
+    k1, k2 = {}, {}
+    print(L2_NOTE)
+    print(K1_HEADER)
+    for n, sites, eps in ((BATCH_512, gen + list(disc), norm.IN_EPS),
+                          (1, gen + list(disc), norm.BN_EPS), (BATCH, gen, norm.IN_EPS)):
+        for site in sorted(set(sites)):
+            for dtype in dtypes(site):
+                _, k1[(n, *site, dtype)] = k1_row(n, *site, dtype, None, eps, g)
+    print(K2_HEADER)
+    for n in (BATCH_512, 1):
+        for site in sorted(set(gen) | set(disc)):
+            for dtype in dtypes(site):
+                _, k2[(n, *site, dtype)] = k2_row(n, *site, dtype, g)
+    hw, c = unstaged
+    for backward in (False, True):
+        print_max_clusters(BATCH_512, hw, c, backward)
+        x = (torch.randn(BATCH_512, hw, hw, c, device="cuda", generator=g) * 3.0 + 1.0).to(
+            torch.bfloat16)
+        scale = 1.0 + 0.02 * torch.randn(c, device="cuda", generator=g)
+        plan = kernels.norm_plan(BATCH_512, hw * hw, c, torch.bfloat16, backward=backward)
+        if backward:
+            fn = lambda: kernels.instance_norm_backward(x, scale, torch.ones_like(x))
+        else:
+            fn = lambda: kernels.instance_norm(x, scale, torch.zeros_like(scale))
+        print(f"{'K2' if backward else 'K1'} at {BATCH_512},{hw},{hw},{c} bf16, {plan}:")
+        print_timeline(fn, plan, backward)
+    for name, times, sites in (("K1", k1, gen), ("K2", k2, gen + list(disc))):
+        t = [sum(times[(BATCH_512, *site, torch.bfloat16)][i] for site in sites) for i in range(4)]
+        print(f"{name}, the {len(sites)} sites of one bf16 "
+              f"{'generator pass' if name == 'K1' else 'generator and discriminator backward'} "
+              f"at {IMG_512}², batch {BATCH_512}: kernel {t[0] * 1e3:.2f} us, plain "
+              f"{t[1] * 1e3:.2f} us, library {t[2] * 1e3:.2f} us, bound {t[3] * 1e3:.2f} us; "
+              f"share of bound {t[3] / t[0]:.1%}, kernel/library {t[0] / t[2]:.2f}")
+    t16 = [sum(k1[(BATCH, *site, torch.bfloat16)][i] for site in gen) for i in range(4)]
+    print(f"K1, the {len(gen)} sites of one bf16 generator pass at {IMG_512}², batch {BATCH}: "
+          f"kernel {t16[0] * 1e3:.2f} us, plain {t16[1] * 1e3:.2f} us, library "
+          f"{t16[2] * 1e3:.2f} us, bound {t16[3] * 1e3:.2f} us; share of bound "
+          f"{t16[3] / t16[0]:.1%}, kernel/library {t16[0] / t16[2]:.2f}")
+
+
+def graph_step_numbers(trainer, caches: tuple, batch: int) -> None:
+    """The graph path's step time (an epoch of GRAPH_STEPS replays per call,
+    timed there and back), image-pairs/s, and from a profile of one epoch
+    the device time per step by kernel group and the card's idle share."""
+    rows = tuple(torch.arange(GRAPH_STEPS * batch, device="cuda").remainder(c.shape[0]).view(
+        GRAPH_STEPS, batch) for c in caches)
+    paths = {"graph": (lambda: trainer._cached_epoch(caches, rows, 1, True), GRAPH_STEPS,
+                       contextlib.nullcontext)}
+    runs = timed_paths(paths, rounds=1, reps=3)
+    busy_us, per_step, idle = profile_paths(paths, 1, runs, "train step")["graph"]
+    ms = float(np.median(runs["graph"]))
+    print(f"train step, graph path: median {ms:.3f} ms (runs {[round(r, 3) for r in runs['graph']]}"
+          f"), {batch / ms * 1e3:.2f} image-pairs/s; device {busy_us / 1e3:.3f} ms, idle "
+          f"{idle:.1%}, {per_step:.1f} kernels and copies per step")
+
+
+def fit_512(kind: str, tmp: str, smi: str) -> dict:
+    """14c (Pix2Pix) and 14d (CycleGAN): ``fit`` for one epoch at 512²,
+    depth 8, bf16, batch 4 on seeded caches (full steps as graph replays, a
+    partial tail, a val pass), remat off and then on, each from the seeded
+    state on a trainer of its own (a runner captures its own setting's
+    graph). Per setting: the launches counted on the card against the
+    derivation (the recomputed stems and norms included), Adam's steps and
+    the checkpoint round trip (``check_fit``), the peak memory of ``fit``.
+    Then the two settings' losses, parameters and Adam states bit for bit,
+    one step of the remat trainer through the kernels against the plain path
+    (``STEP_TOL``), and each setting's graph step time and idle share.
+    Returns the launches of both fits."""
+    rng = np.random.default_rng(SEED + 19)
+    if kind == "pix2pix":
+        train = train_caches(kind, (N_512_TRAIN,), IMG_512, rng)
+        val = (rng.integers(0, 256, (N_512_VAL, 2, IMG_512, IMG_512, 1), dtype=np.uint8),)
+        plan = (divmod(N_512_TRAIN, BATCH_512), divmod(N_512_VAL, BATCH_512))
+    else:
+        train = train_caches(kind, (N_512_X, N_512_Y), IMG_512, rng)
+        val = tuple(rng.integers(0, 256, (N_512_VAL, IMG_512, IMG_512, 1), dtype=np.uint8)
+                    for _ in range(2))
+        plan = (divmod(min(N_512_X, N_512_Y), BATCH_512), divmod(N_512_VAL, BATCH_512))
+    steps = plan[0][0] + (plan[0][1] > 0)
+    launches, trainers, epochs, peaks = {}, {}, {}, {}
+    for remat in ("off", "on"):
+        on = remat == "on"
+        cfg = gan_config(kind, tmp, IMG_512, BATCH_512, remat)
+        trainer = seeded_trainer(kind, cfg)
+        if trainer.sampler.remat != on:
+            raise AssertionError(f"--remat {remat} built a generator with remat {not on}")
+        if kind == "pix2pix":
+            per = (pix2pix_launches(IMG_512, BATCH_512, True, on),
+                   pix2pix_launches(IMG_512, BATCH_512, False, on))
+            tails = (pix2pix_launches(IMG_512, plan[0][1], True, on),
+                     pix2pix_launches(IMG_512, plan[1][1], False, on))
+        else:
+            per, tails = cyclegan_launches(IMG_512, on), None
+        want, want_host, want_epoch = epoch_plan_counts(*per, *plan, tails)
+        print(f"remat {remat}: 1 epoch of {steps} train steps (full {plan[0]}) and val (full "
+              f"{plan[1]}); per full train step {per[0]}, per tail "
+              f"{(tails or per)[0]}; per val step {per[1]}")
+        mgr = CheckpointManager(os.path.join(tmp, f"{kind}_remat_{remat}"), max_to_keep=1)
+        epochs[remat] = recorded_epochs(trainer)
+
+        def fit():
+            return (*trainer.fit(*train, *val, val[0][:1], tmp, checkpoint_manager=mgr), mgr)
+
+        counted, peaks[remat] = check_fit(trainer, lambda: seeded_trainer(kind, cfg), fit, want,
+                                          want_host, want_epoch, steps)
+        for name, n in counted.items():
+            launches[name] = launches.get(name, 0) + n
+        trainers[remat] = trainer
+    compare_epochs(trainers["on"], trainers["off"], epochs["on"], epochs["off"],
+                   "remat vs remat-free epochs")
+    print(f"peak device memory of fit: remat off {peaks['off']:.2f} GiB, on {peaks['on']:.2f} "
+          f"GiB ({smi})")
+
+    # one step from the fitted state, the remat trainer: kernel path vs plain path
+    u8 = [torch.from_numpy(a[:BATCH_512]).to("cuda") for a in train]
+    gx, gy = (torch.Generator(device="cuda").manual_seed(SEED + i) for i in (4, 5))
+    if kind == "pix2pix":
+        x, y = paired_jitter_batch(u8[0], gx, img_size=IMG_512, dtype=torch.bfloat16)
+        draws = lambda t: t._draws(SEED, 0, 0, 0, 0)
+    else:
+        x, y = (single_jitter_batch(u, gen, img_size=IMG_512, dtype=torch.bfloat16)
+                for u, gen in zip(u8, (gx, gy)))
+        draws = lambda t: [t._draws(SEED, 0, 0, 0, app) for app in range(6)]
+    trainer32 = seeded_trainer(kind, gan_config(kind, tmp, IMG_512, BATCH_512, "on", "fp32"))
+    trainer32.load_state(trainers["on"].state())
+    check_step_paths(trainers["on"], trainer32, x, y, draws)
+    del trainer32
+
+    caches = tuple(torch.from_numpy(a).to("cuda") for a in train)
+    for remat in ("off", "on"):
+        print(f"remat {remat}, graph step at {IMG_512}², batch {BATCH_512} ({smi}):")
+        graph_step_numbers(trainers[remat], caches, BATCH_512)
+    return launches
+
+
+def predict_512() -> dict:
+    """14e: ``generate_batched`` of both models at 512², 32 seeded images in
+    chunks of 16, through ``check_predict``. Returns the launches."""
+    launches = {}
+    for kind, norm_type in (("pix2pix", blocks.BatchNorm), ("cyclegan", blocks.InstanceNorm)):
+        argv = ["--output", "out", "--predict", "--weights", "run", "--img-size", str(IMG_512),
+                "--channels", "1", "--dtype"]
+        parse = (lambda a: parse_pix2pix(["--data", "d", *a])) if kind == "pix2pix" else (
+            lambda a: parse_cyclegan(["--input-images", "x", *a]))
+        trainer = seeded_trainer(kind, parse(argv + ["bf16"]))
+        u8 = np.random.default_rng(SEED + 20).integers(0, 256, (N_IMAGES, IMG_512, IMG_512, 1),
+                                                       dtype=np.uint8)
+        print(f"{kind} generator at {IMG_512}², depth {generator_depth(IMG_512)}:")
+        got, _ = check_predict(trainer, seeded_trainer(kind, parse(argv + ["fp32"])), u8, norm_type)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def remat_frontier(tmp: str, smi: str) -> None:
+    """14f: graph step ms and peak device memory with remat off and on at
+    each FRONTIER configuration, each on a fresh seeded trainer over a
+    resident cache of one batch: an epoch of FRONTIER_STEPS steps (the
+    warm-up, the capture, replays), then a timed epoch of FRONTIER_STEPS
+    replays; the peak covers both, the graph pool included. Then, per model,
+    the remat-free peaks fitted to a line in 256²-image equivalents (what
+    ``use_remat`` rests on) beside ``REMAT_FREE_PEAK``, and what ``auto``
+    decides at each configuration on this card."""
+    rows = []
+    for kind, size, batch in FRONTIER:
+        for remat in ("off", "on"):
+            trainer = seeded_trainer(kind, gan_config(kind, tmp, size, batch, remat))
+            caches = tuple(torch.from_numpy(a).to("cuda") for a in train_caches(
+                kind, (batch, batch), size, np.random.default_rng(SEED + 21)))
+            idx = tuple(torch.arange(FRONTIER_STEPS * batch, device="cuda").view(
+                FRONTIER_STEPS, batch).remainder(batch) for _ in caches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            first = trainer._cached_epoch(caches, idx, 0, True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            second = trainer._cached_epoch(caches, idx, 1, True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / FRONTIER_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if not (torch.isfinite(first).all() and torch.isfinite(second).all()):
+                raise AssertionError(f"{kind} {size}² batch {batch} remat {remat}: a loss is "
+                                     "not finite")
+            if trainer.epoch_counts != {"eager": 1, "captures": 1,
+                                        "replays": 2 * FRONTIER_STEPS - 1}:
+                raise AssertionError(f"the frontier's runner ran {trainer.epoch_counts}")
+            rows.append((kind, size, batch, remat, ms, peak))
+            print(f"  {kind} {size}² batch {batch} remat {remat}: {ms:.3f} ms a step, peak "
+                  f"{peak:.2f} GiB", flush=True)
+            del trainer, caches, idx, first, second
+            gc.collect()
+            torch.cuda.empty_cache()
+    total = device_bytes(torch.device("cuda"))
+    print(f"\nremat frontier, graph steps, bf16 ({smi}; {total / 2**30:.2f} GiB on the card):")
+    print(f"{'model':>9} {'size':>5} {'batch':>6} {'256²-eq':>8} {'off_ms':>9} {'on_ms':>9} "
+          f"{'on/off':>7} {'off_pairs/s':>12} {'on_pairs/s':>11} {'off_GiB':>8} {'on_GiB':>7} "
+          f"{'on/off':>7} {'predicted_off_GiB':>18} {'auto':>5}")
+    by = {(k, s, b, r): (ms, peak) for k, s, b, r, ms, peak in rows}
+    for kind, size, batch in FRONTIER:
+        (off_ms, off_gib), (on_ms, on_gib) = by[kind, size, batch, "off"], by[kind, size, batch, "on"]
+        eq = batch * (size / 256) ** 2
+        fixed, per_eq = REMAT_FREE_PEAK[kind]
+        auto = use_remat(gan_config(kind, tmp, size, batch, "auto"), total)
+        print(f"{kind:>9} {size:>5} {batch:>6} {eq:>8g} {off_ms:>9.3f} {on_ms:>9.3f} "
+              f"{on_ms / off_ms:>7.3f} {batch / off_ms * 1e3:>12.2f} {batch / on_ms * 1e3:>11.2f} "
+              f"{off_gib:>8.2f} {on_gib:>7.2f} {on_gib / off_gib:>7.3f} "
+              f"{(fixed + per_eq * eq) / 2**30:>18.2f} {'on' if auto else 'off':>5}")
+    for kind in ("pix2pix", "cyclegan"):
+        pts = [(b * (s / 256) ** 2, by[k, s, b, "off"][1]) for k, s, b in FRONTIER if k == kind]
+        slope, fixed = np.polyfit([p[0] for p in pts], [p[1] for p in pts], 1)
+        print(f"{kind}: remat-free peak ~ {fixed:.3f} GiB + {slope:.4f} GiB per 256²-image "
+              f"equivalent (least squares over {len(pts)} configurations); auto turns remat on "
+              f"past {((1 - DEVICE_CACHE_FRACTION) * total / 2**30 - fixed) / slope:.0f} "
+              f"equivalents on this card")
+
+
+def run_512(tmp: str, smi: str) -> dict:
+    """Phase 14. Returns the kernel launch counts of the main-path runs
+    (14c, 14d, 14e)."""
+    launches = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    phase(f"14a. K1 and K2 vs plain at every {IMG_512}² norm site ({smi})")
+    check_norms_512()
+    phase(f"14b. stem kernel (S) vs plain, every stem shape at {IMG_512}² ({smi})")
+    check_stem(IMG_512)
+    phase(f"14c. Pix2Pix fit at {IMG_512}², batch {BATCH_512}, remat off and on ({smi})")
+    add(fit_512("pix2pix", tmp, smi))
+    phase(f"14d. CycleGAN fit at {IMG_512}², batch {BATCH_512}, remat off and on ({smi})")
+    add(fit_512("cyclegan", tmp, smi))
+    phase(f"14e. predict at {IMG_512}², both models ({smi})")
+    add(predict_512())
+    phase(f"14f. the remat frontier ({smi})")
+    remat_frontier(tmp, smi)
+    print(f"phase 14 launches, counted on the card: {launches}")
     return launches
 
 
@@ -1787,7 +2184,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         add(run_host_data(tmp, smi))
 
-    print(f"\nlaunches on the six main paths, counted on the card: {launches}")
+    phase(f"14. the {IMG_512}² slice: K1, K2 and S at its sites, fit with --remat off and on, "
+          "predict, the remat frontier")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_512(tmp, smi))
+
+    print(f"\nlaunches on the main paths, counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):
         raise AssertionError("a kernel of the paths was never launched")
     record = {"kernels": [

@@ -110,7 +110,7 @@ class CycleGANConfig(BaseConfig):
 def refuse_unported(cfg: BaseConfig) -> None:
     """Exit when --train asks for data parallelism (``--num-devices`` > 1),
     which is not ported yet. ``--host-cache``, ``--device-cache``,
-    ``--resume`` and ``--checkpoint-every`` are ported."""
+    ``--resume``, ``--checkpoint-every`` and ``--remat`` are ported."""
     if cfg.train and cfg.num_devices > 1:
         raise SystemExit("gan_tpu_torch: --num-devices > 1 with --train is not "
                          "ported yet; train with gan_tpu's CLI or drop the flag")
@@ -159,7 +159,8 @@ def _add_common(p: argparse.ArgumentParser, argv) -> None:
                    help="in predict mode, also write bare generated images "
                         "(prediction_images_raw/)")
     p.add_argument("--remat", type=str, default="auto", choices=["auto", "on", "off"],
-                   help="gan_tpu training flag; parsed, unused by the port")
+                   help="gradient checkpointing of the U-Net blocks in training (auto: "
+                        "only where training would not fit in the device's memory)")
     p.add_argument("--host-cache", type=str, default="auto", choices=["auto", "on", "off"],
                    help="host-RAM data cache (auto: when the decoded corpus fits in half "
                         "of MemAvailable; off: stream batches from the image files)")

@@ -40,15 +40,11 @@ def keep_mask(shape, generator: torch.Generator | None, device, rate: float = DR
     return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
 
 
-def dropout(x, rate: float, *, generator: torch.Generator | None = None,
-            mask: torch.Tensor | None = None):
-    """Inverted dropout (TF semantics). ``mask`` (True = keep) is used as
-    given; otherwise it is drawn from ``generator``; with neither it is a
-    no-op."""
+def dropout(x, rate: float, mask: torch.Tensor | None = None):
+    """Inverted dropout (TF semantics) with the keep-mask ``mask`` (True =
+    keep, from :func:`keep_mask`); without one it is a no-op."""
     if mask is None:
-        if generator is None:
-            return x
-        mask = keep_mask(x.shape, generator, x.device, rate)
+        return x
     return torch.where(mask.to(x.device), x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                                          device=x.device))
 
@@ -122,9 +118,8 @@ class Upsample(nn.Module):
         self.conv = conv_kernel_init((c_in, c_out, 4, 4), generator)
         self.norm = norm_layer(norm, c_out, generator)
 
-    def forward(self, x, *, compute_dtype=None, drop_generator=None, drop_mask=None,
-                per_sample: bool = False):
+    def forward(self, x, *, compute_dtype=None, drop_mask=None, per_sample: bool = False):
         x = conv2d_transpose_up(x, self.conv, compute_dtype=compute_dtype)
         x = self.norm(x, per_sample=per_sample)
-        x = dropout(x, DROP_RATE, generator=drop_generator, mask=drop_mask)
+        x = dropout(x, DROP_RATE, mask=drop_mask)
         return activation(x, "relu")

@@ -9,6 +9,15 @@ for small test images, keeping the tail of the up specs as gan_tpu does.
 
 Submodules are named ``down_i``, ``up_i`` and ``last`` as in gan_tpu's
 parameter pytree (see gan_tpu_torch.transplant). Input and output are NHWC.
+
+``remat`` (``--remat``, gan_tpu's ``jax.checkpoint`` of each block) runs
+every down and up block, the stem included, through non-reentrant
+``torch.utils.checkpoint`` while autograd records: a block keeps only its
+input and output, and the backward recomputes the rest (its conv, S, K1).
+The head is not wrapped, as in gan_tpu. Dropout masks are drawn before any
+block runs, so a recomputed block reads the mask its forward read; a mask
+drawn inside the block would be drawn again, and differ, since
+``preserve_rng_state`` does not restore an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -17,7 +26,9 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from gan_tpu_torch.models import blocks
 from gan_tpu_torch.models.blocks import Downsample, Upsample, conv_kernel_init
 from gan_tpu_torch.ops.conv import conv2d_transpose_up
 
@@ -38,9 +49,11 @@ class Head(nn.Module):
 
 class UNetGenerator(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, *, norm: str = "batch",
-                 depth: int = 8, generator: torch.Generator | None = None):
+                 depth: int = 8, generator: torch.Generator | None = None,
+                 remat: bool = False):
         super().__init__()
         self.depth = depth
+        self.remat = remat
         self.down_filters = _DOWN_FILTERS[:depth]
         # keep the *last* depth-1 up specs so the tail (…256, 128, 64) is preserved
         self.up_specs = _UP_SPECS[len(_UP_SPECS) - (depth - 1):]
@@ -74,25 +87,36 @@ class UNetGenerator(nn.Module):
                 per_sample: bool = False):
         """x: (N, H, W, C_in) -> (N, H, W, out_channels) fp32 in [-1, 1].
 
-        Dropout draws from ``generator``, or takes ``masks`` (one keep-mask per
-        dropout site, in call order); with neither it is off. ``per_sample``
-        gives batch norm each image's own statistics (predict); instance norm
-        has them anyway."""
+        Dropout takes ``masks`` (one keep-mask per dropout site, in call
+        order), or draws them from ``generator`` before the first block, in
+        that order; with neither it is off. ``per_sample`` gives batch norm
+        each image's own statistics (predict); instance norm has them
+        anyway."""
+        if masks is None and generator is not None:
+            masks = [blocks.keep_mask(shape, generator, x.device)
+                     for shape in self.dropout_shapes(x.shape[0], x.shape[1])]
         if compute_dtype is not None:
             x = x.to(compute_dtype)
+        remat = self.remat and torch.is_grad_enabled()
+
+        def block(name, h, **kwargs):
+            module = getattr(self, name)
+            if remat:   # no global RNG state to keep: the step draws from none
+                return checkpoint(module, h, use_reentrant=False, preserve_rng_state=False,
+                                  compute_dtype=compute_dtype, per_sample=per_sample, **kwargs)
+            return module(h, compute_dtype=compute_dtype, per_sample=per_sample, **kwargs)
+
         skips = []
         h = x
         for i in range(self.depth):
-            h = getattr(self, f"down_{i}")(h, compute_dtype=compute_dtype, per_sample=per_sample)
+            h = block(f"down_{i}", h)
             skips.append(h)
         skips = skips[:-1][::-1]
 
         mask_iter = iter(masks) if masks is not None else None
         for i, (_f, use_drop) in enumerate(self.up_specs):
             mask = next(mask_iter) if use_drop and mask_iter is not None else None
-            h = getattr(self, f"up_{i}")(h, compute_dtype=compute_dtype, drop_mask=mask,
-                                         drop_generator=generator if use_drop else None,
-                                         per_sample=per_sample)
+            h = block(f"up_{i}", h, drop_mask=mask)
             h = torch.cat([h, skips[i]], dim=-1)
 
         out = conv2d_transpose_up(h, self.last.conv, compute_dtype=compute_dtype)

@@ -27,9 +27,14 @@ memory. ``--device-cache off`` (or ``auto`` when the caches exceed 0.4 of
 the card's memory) keeps decoded caches on the host and streams their
 batches to the card each step. Either way the epochs equal the resident
 ones. ``--num-devices`` > 1 is not ported yet: with ``--train`` it exits
-with an error. ``--use-pallas``, ``--remat`` and ``--bn-cross-replica`` are
-parsed and written to config.json but change nothing here: the stems and
-the per-image batch norm always run the CUDA kernels on the card.
+with an error. ``--remat on`` checkpoints every U-Net block of the
+generator(s) while training (``torch.utils.checkpoint``; the backward
+recomputes each block), and ``auto`` does so only where training would not
+fit in the card's memory without it
+(gan_tpu_torch.train.pix2pix_trainer.use_remat); config.json keeps the flag
+as given. ``--use-pallas`` and ``--bn-cross-replica`` are parsed and
+written to config.json but change nothing here: the port always runs its
+CUDA kernels on the card.
 """
 
 from __future__ import annotations

@@ -47,13 +47,15 @@ import torch
 from gan_tpu_torch.config import CycleGANConfig
 from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
                                         single_jitter_batch)
-from gan_tpu_torch.data.loader import iter_uint8_batches
+from gan_tpu_torch.data.loader import device_bytes, iter_uint8_batches
+from gan_tpu_torch.device import default_device
 from gan_tpu_torch.losses import (CYCLEGAN_LOSS_KEYS, cycle_loss, discriminator_loss,
                                   empty_losses, generator_adversarial_loss, identity_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
 from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.base import GANTrainer, StepDraws, generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager
+from gan_tpu_torch.train.pix2pix_trainer import use_remat
 from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import Throughput
 
@@ -69,8 +71,9 @@ class CycleGANTrainer(GANTrainer):
         c = config.n_channels
         init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
         depth = generator_depth(config.img_size)
-        self.gen_g = UNetGenerator(c, c, norm="instance", depth=depth, generator=init)
-        self.gen_f = UNetGenerator(c, c, norm="instance", depth=depth, generator=init)
+        remat = use_remat(config, device_bytes(default_device()))
+        self.gen_g = UNetGenerator(c, c, norm="instance", depth=depth, generator=init, remat=remat)
+        self.gen_f = UNetGenerator(c, c, norm="instance", depth=depth, generator=init, remat=remat)
         self.disc_x = PatchGANDiscriminator(c, norm="instance", generator=init)
         self.disc_y = PatchGANDiscriminator(c, norm="instance", generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},

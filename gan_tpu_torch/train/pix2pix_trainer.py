@@ -45,10 +45,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gan_tpu_torch.config import Pix2PixConfig
+from gan_tpu_torch.config import CycleGANConfig, Pix2PixConfig
 from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
                                         paired_jitter_batch)
-from gan_tpu_torch.data.loader import iter_uint8_batches
+from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION, device_bytes, iter_uint8_batches
+from gan_tpu_torch.device import default_device
 from gan_tpu_torch.losses import (PIX2PIX_LOSS_KEYS, discriminator_loss, empty_losses,
                                   pix2pix_generator_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
@@ -61,13 +62,44 @@ from gan_tpu_torch.utils.profiling import Throughput
 NETWORKS = ("gen", "disc")
 _DROPOUT, _JITTER = 0, 1   # draw indices within a step
 
+# Peak device memory of a remat-free graph epoch, (bytes, bytes per
+# 256²-image equivalent of the batch): least squares over chip_smoke.py phase
+# 14f's remat-free points on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# (Pix2Pix at 512², batch 1, 4, 16, 64 and 256², batch 128: 1.70-12.92 GiB;
+# CycleGAN at 512², batch 1, 4, 16: 3.05-13.36 GiB)
+REMAT_FREE_PEAK = {"pix2pix": (1.988 * 2**30, 0.0412 * 2**30),
+                   "cyclegan": (2.361 * 2**30, 0.1719 * 2**30)}
+
+
+def use_remat(config, device_memory: int) -> bool:
+    """``--remat``: ``on`` and ``off`` as given; ``auto`` checkpoints the
+    U-Net blocks only where training would not fit without it: where the
+    remat-free peak that ``REMAT_FREE_PEAK`` predicts for the model at
+    ``batch_size`` × (``img_size`` / 256)² image equivalents exceeds the
+    share of ``device_memory`` that the device-cache plan leaves to training
+    (1 − ``DEVICE_CACHE_FRACTION``). On the H100 80GB (79.18 GiB) that is
+    past 1,104 equivalents for Pix2Pix (512², batch 277) and 263 for
+    CycleGAN (512², batch 66), beyond the largest batch measured, so the
+    line is extrapolated there. Phase 14f measured remat slower at every
+    point (10-26% a graph step) while it cut the peak by 15-33% (72% at
+    Pix2Pix's batch of 1), so ``auto`` does not copy gan_tpu's v5e rule,
+    which also turned remat on at 512² batches of 8 or less, where the v5e
+    ran faster with it."""
+    if config.remat in ("on", "off"):
+        return config.remat == "on"
+    fixed, per_image = REMAT_FREE_PEAK["cyclegan" if isinstance(config, CycleGANConfig)
+                                       else "pix2pix"]
+    images = config.batch_size * (config.img_size / 256) ** 2
+    return fixed + per_image * images > (1 - DEVICE_CACHE_FRACTION) * device_memory
+
 
 class Pix2PixTrainer(GANTrainer):
     def __init__(self, config: Pix2PixConfig):
         c = config.n_channels
         init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
         self.gen = UNetGenerator(c, c, norm="batch", depth=generator_depth(config.img_size),
-                                 generator=init)
+                                 generator=init,
+                                 remat=use_remat(config, device_bytes(default_device())))
         self.disc = PatchGANDiscriminator(c, norm="batch", target=True, generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
                          sampler="gen")

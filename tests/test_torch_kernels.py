@@ -1,8 +1,9 @@
 """The kernel wrappers: on a CPU tensor they run the plain versions; on the
 card (``-m cuda``) the CUDA kernels, K1 forward (also with batch norm's
 epsilon, as per-image batch norm runs it) and K2 backward, are held against
-the plain versions at the generator's shapes, the PatchGAN's 31² site and
-the edges of their cluster plans, and rerun bit for bit; the stem kernel S,
+the plain versions at the generator's shapes, the PatchGAN's 31² site, the
+edges of their cluster plans and the unstaged 256²×64 site of the 512²
+generator, and rerun bit for bit; the stem kernel S,
 forward and backward, at every C_in it takes, and its bf16 tensor-core route
 also on other launch plans, on a misaligned input and rerun bit for bit. This
 file imports no jax, so it also runs where jax is absent:
@@ -25,6 +26,10 @@ NORM_ATOL = 2e-5
 # channel per load), C = 80 (a channel tile with a ragged tail) split over a
 # cluster of 8
 EDGE_SHAPES = [(1, 128, 128, 64), (2, 31, 31, 512), (2, 8, 8, 3), (2, 32, 32, 80)]
+# the 512² U-Net's last up block, at batch 1 and the training batch of 4: its
+# bands exceed shared memory, so K1 and K2 read x (and dy) from global memory
+# twice instead of staging them (the plan's staged = 0)
+UNSTAGED_SHAPES = [(1, 256, 256, 64), (4, 256, 256, 64)]
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():
@@ -47,7 +52,8 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "leaky_relu", "relu"])
 @pytest.mark.parametrize("shape", [(16, 1, 1, 512), (16, 2, 2, 512), (4, 16, 16, 256),
-                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES])
+                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES,
+                                   *UNSTAGED_SHAPES])
 def test_instance_norm_kernel_matches_plain(cuda_device, shape, act, dtype):
     x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
     x = x.to(dtype)
@@ -111,7 +117,8 @@ def sums_tol(shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(16, 1, 1, 512), (16, 2, 2, 512), (4, 16, 16, 256),
-                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES])
+                                   (2, 128, 128, 64), (3, 3, 5, 80), *EDGE_SHAPES,
+                                   *UNSTAGED_SHAPES])
 def test_instance_norm_backward_kernel_matches_plain(cuda_device, shape, dtype):
     x, scale, _ = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
     x = x.to(dtype)

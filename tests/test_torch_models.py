@@ -1,6 +1,7 @@
 """gan_tpu_torch's U-Net against gan_tpu.models.UNetGenerator on the CPU, on
 transplanted weights: dropout off in fp32 and bf16, dropout on with the same
-masks injected into both, and the transplant round trip."""
+masks injected into both, the transplant round trip, and both networks at
+512² and full depth."""
 
 import jax
 import jax.numpy as jnp
@@ -9,8 +10,9 @@ import pytest
 import torch
 
 import gan_tpu.models.blocks as jax_blocks
+from gan_tpu.models import PatchGANDiscriminator as JaxPatchGAN
 from gan_tpu.models import UNetGenerator as JaxUNet
-from gan_tpu_torch.models import UNetGenerator
+from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
 from gan_tpu_torch.transplant import state_dict_to_params, params_to_state_dict
 
 
@@ -115,3 +117,41 @@ def test_batch_norm_is_not_ported():
             got = gen(torch.from_numpy(x), compute_dtype=tdt).numpy()
         assert got.shape == want.shape == (3, 32, 32, 1) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, atol=atol)
+
+
+@pytest.mark.parametrize("norm", ["instance", "batch"])
+def test_unet_and_patchgan_match_gan_tpu_at_512(norm):
+    """The reference's 512² networks at full depth (8 blocks, a 2×2
+    bottleneck) on one image, fp32, dropout off: the port's seeded weights
+    with non-zero norm offsets, betas and biases, transplanted into gan_tpu.
+    Instance norm is CycleGAN's generator and unconditional PatchGAN;
+    batch norm on a batch of one is Pix2Pix's per-image batch norm (the
+    port runs it through K1's wrapper at ε 1e-3) with the conditional
+    PatchGAN, (1, 62, 62, 1) logits either way. Tolerance: fp32 sums in
+    other orders through 15 convs and 14 norms (gan_tpu's batch norm takes
+    E[x²] − mean², the port two passes): 2e-5 on the tanh output (seen
+    2.9e-6) and 1e-5 of the largest logit (seen 2.8e-6 of it)."""
+    g = torch.Generator().manual_seed(40)
+    gen = UNetGenerator(1, 1, norm=norm, depth=8, generator=g)
+    disc = PatchGANDiscriminator(1, norm=norm, target=norm == "batch", generator=g)
+    with torch.no_grad():
+        for net in (gen, disc):
+            for name, p in net.named_parameters():
+                if name.endswith(("offset", "beta", "bias")):
+                    p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    rng = np.random.default_rng(41)
+    x, y = (rng.uniform(-1, 1, (1, 512, 512, 1)).astype(np.float32) for _ in range(2))
+    jax_gen = JaxUNet(out_channels=1, norm=norm, depth=8)
+    jax_disc = JaxPatchGAN(norm=norm, target=norm == "batch")
+    want = np.asarray(jax.jit(lambda p, a: jax_gen.apply(p, a, rng=None))(
+        state_dict_to_params(gen.state_dict()), x))
+    pair = (x, y) if norm == "batch" else (x,)
+    want_logits = np.asarray(jax.jit(lambda p, *a: jax_disc.apply(p, *a))(
+        state_dict_to_params(disc.state_dict()), *pair))
+    with torch.no_grad():
+        got = gen(torch.from_numpy(x)).numpy()
+        got_logits = disc(*(torch.from_numpy(a) for a in pair)).numpy()
+    assert got.shape == want.shape == (1, 512, 512, 1)
+    assert got_logits.shape == want_logits.shape == (1, 62, 62, 1)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    np.testing.assert_allclose(got_logits, want_logits, atol=1e-5 * np.abs(want_logits).max())

@@ -2,10 +2,13 @@
 (``gan_tpu_torch.ops.kernels.norm_plan``), on the CPU: at every norm site
 that ``chip_smoke.py`` drives (the 256² generator at the predict chunk of 16
 and the training batch of 8, which is also the Pix2Pix predict chunk's per-image
-batch norm, and the PatchGAN's sites at batch 8) and at the edge shapes, in
-bf16 and fp32. Each plan's bands cover H·W once and its tiles cover C once,
-its cluster and shared memory are ones Hopper can run, and the path's large
-sites put at least 128 blocks on the card."""
+batch norm, and the PatchGAN's sites at batch 8; the 512² generator's and
+PatchGAN's sites at batch 1, 4 and 16) and at the edge shapes, in bf16 and
+fp32. Each plan's bands cover H·W once and its tiles cover C once, its
+cluster and shared memory are ones Hopper can run, and the path's large
+sites put at least 128 blocks on the card. The 512² generator's last up
+block (256²×64) is the one site whose band exceeds shared memory: its plan
+stages nothing."""
 
 import pytest
 import torch
@@ -18,6 +21,10 @@ _GEN_SITES = chip_smoke.norm_sites(chip_smoke.IMG_SIZE, generator_depth(chip_smo
 PATH_CASES = sorted({(n, hw * hw, c) for hw, c in _GEN_SITES
                      for n in (chip_smoke.BATCH, chip_smoke.TRAIN_BATCH)}
                     | {(chip_smoke.TRAIN_BATCH, hw * hw, c) for hw, c in chip_smoke.DISC_NORM_SITES})
+_SITES_512 = (chip_smoke.norm_sites(chip_smoke.IMG_512, generator_depth(chip_smoke.IMG_512))
+              + list(chip_smoke.disc_norm_sites(chip_smoke.IMG_512)))
+CASES_512 = sorted({(n, hw * hw, c) for hw, c in _SITES_512 for n in (1, 4, 16)})
+UNSTAGED_SITE = (256 * 256, 64)   # the 512² generator's last up block
 # H·W = 1; the (3, 3, 5, 80) test shape; one sample at the largest site; C = 3
 EDGE_CASES = [(16, 1, 512), (3, 15, 80), (1, 128 * 128, 64), (2, 64, 3), (4, 32 * 32, 3)]
 DTYPES = [torch.bfloat16, torch.float32]
@@ -29,25 +36,32 @@ def _is_large(n, hw, c):
     return (n, hw, c) in PATH_CASES and hw >= 16 * 16
 
 
+def _assert_schedulable_cover(plan, n, hw, c, dtype):
+    """The plan's bands cover H·W once and its tiles C once, on a cluster,
+    threads and shared memory that Hopper can run, loading 16 bytes where C
+    allows it."""
+    bands = [range(q * plan.rows_per_block, min((q + 1) * plan.rows_per_block, hw))
+             for q in range(plan.k)]
+    assert [r for band in bands for r in band] == list(range(hw))
+    assert plan.tiles == -(-c // plan.channel_tile)
+    assert (plan.tiles - 1) * plan.channel_tile < c <= plan.tiles * plan.channel_tile
+    assert plan.blocks == n * plan.tiles * plan.k
+    assert 1 <= plan.k <= kernels.MAX_CLUSTER
+    assert plan.portable == (plan.k <= kernels.PORTABLE_CLUSTER)
+    assert plan.smem_bytes <= kernels.MAX_SMEM
+    lanes = plan.channel_tile // plan.vec
+    assert 32 <= plan.threads <= kernels.MAX_THREADS and plan.threads % 32 == 0
+    assert lanes <= 32 and lanes & (lanes - 1) == 0
+    elt = torch.finfo(dtype).bits // 8
+    assert plan.vec == (16 // elt if c % (16 // elt) == 0 else 1)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,hw,c", PATH_CASES + EDGE_CASES)
 def test_norm_plan_covers_the_tensor_on_a_schedulable_launch(n, hw, c, dtype):
     for backward in (False, True):
         plan = kernels.norm_plan(n, hw, c, dtype, backward=backward)
-        bands = [range(q * plan.rows_per_block, min((q + 1) * plan.rows_per_block, hw))
-                 for q in range(plan.k)]
-        assert [r for band in bands for r in band] == list(range(hw))
-        assert plan.tiles == -(-c // plan.channel_tile)
-        assert (plan.tiles - 1) * plan.channel_tile < c <= plan.tiles * plan.channel_tile
-        assert plan.blocks == n * plan.tiles * plan.k
-        assert 1 <= plan.k <= kernels.MAX_CLUSTER
-        assert plan.portable == (plan.k <= kernels.PORTABLE_CLUSTER)
-        assert plan.smem_bytes <= kernels.MAX_SMEM
-        lanes = plan.channel_tile // plan.vec
-        assert 32 <= plan.threads <= kernels.MAX_THREADS and plan.threads % 32 == 0
-        assert lanes <= 32 and lanes & (lanes - 1) == 0
-        elt = torch.finfo(dtype).bits // 8
-        assert plan.vec == (16 // elt if c % (16 // elt) == 0 else 1)
+        _assert_schedulable_cover(plan, n, hw, c, dtype)
         if plan.vec > 1:   # every band of x fits in shared memory at these sizes
             assert plan.staged >= 1
         if _is_large(n, hw, c):
@@ -55,7 +69,38 @@ def test_norm_plan_covers_the_tensor_on_a_schedulable_launch(n, hw, c, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,hw,c", PATH_CASES)
+@pytest.mark.parametrize("n,hw,c", CASES_512)
+def test_norm_plan_covers_the_512_sites(n, hw, c, dtype):
+    """Every site but the last up block's stages x's band; from the
+    training batch of 4 on, the sites of at least 64²×256 put at least 128
+    blocks on the card (a batch of one has too few instances for that)."""
+    for backward in (False, True):
+        plan = kernels.norm_plan(n, hw, c, dtype, backward=backward)
+        _assert_schedulable_cover(plan, n, hw, c, dtype)
+        assert (plan.staged >= 1) == ((hw, c) != UNSTAGED_SITE)
+        if n >= 4 and hw * c >= 64 * 64 * 256:
+            assert plan.blocks >= 128, plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 4, 16])
+def test_norm_plan_of_the_unstaged_512_site(n, dtype):
+    """The 256²×64 site: even at 16 blocks to a cluster a band of 4,096 rows
+    of a 16-byte-loaded tile exceeds shared memory, so neither K1 nor K2
+    stages it (x, and dy, are read from global memory twice), yet the plan
+    still loads 16 bytes, covers H·W and C once and fits the limits."""
+    hw, c = UNSTAGED_SITE
+    for backward in (False, True):
+        plan = kernels.norm_plan(n, hw, c, dtype, backward=backward)
+        _assert_schedulable_cover(plan, n, hw, c, dtype)
+        assert plan.staged == 0 and plan.vec > 1
+        assert plan.k == kernels.MAX_CLUSTER
+        elt = torch.finfo(dtype).bits // 8
+        assert plan.rows_per_block * plan.channel_tile * elt > kernels.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,hw,c", PATH_CASES + CASES_512)
 def test_norm_plan_backward_shares_the_forward_geometry(n, hw, c, dtype):
     """K2 recomputes K1's statistics with K1's bands and tiles, so x̂ is the
     forward's bit for bit; only what it stages may differ."""

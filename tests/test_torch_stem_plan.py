@@ -11,7 +11,8 @@ card runs it.
   the A fragments use, hold the im2col matrix; the B fragments of
   ``mma.sync.m16n8k16`` cover the weight once; the swizzled staging tile of
   the epilogue returns each C fragment value to its pixel and filter;
-- ``kernels.stem_plan`` at every stem shape of ``chip_smoke.py``, at the
+- ``kernels.stem_plan`` at every stem shape of ``chip_smoke.py`` (256² and
+  512²), at the
   ``cuda`` tests' shapes and at the edge widths: the grid covers every
   output row once, the shared memory fits a block, the M tiles cover the
   block's pixels with the ragged tail masked.
@@ -31,8 +32,8 @@ SMALL_SHAPES = [(2, 8, 8), (1, 6, 10), (3, 4, 14)]
 CUDA_SHAPES = [(2, 64, 64), (1, 256, 256), (3, 6, 10), (2, 10, 38)]
 EDGE_SHAPES = [(1, 2, 2), (4, 4, 2), (2, 32, 32), (2, 34, 34), (1, 8, 1024), (1, 4, 2048),
                (64, 256, 256)]
-PLAN_CASES = sorted({(n, chip_smoke.IMG_SIZE, chip_smoke.IMG_SIZE, c)
-                     for n, c in chip_smoke.STEM_SHAPES}
+PLAN_CASES = sorted({(n, size, size, c) for size in (chip_smoke.IMG_SIZE, chip_smoke.IMG_512)
+                     for n, c in chip_smoke.stem_shapes(size)}
                     | {(*nhw, c) for nhw in CUDA_SHAPES + EDGE_SHAPES
                        for c in kernels.STEM_CHANNELS})
 
