@@ -38,25 +38,46 @@ Phases, each printed; any failure raises and the script exits non-zero:
    torch.profiler over 5 generator forwards, kernel and plain path;
 6. the backward kernel (K2), and K1, against their plain versions at every
    instance-norm shape of a CycleGAN training step at batch 8, with the
-   same columns, plan sweep and timeline as phase 3;
+   same columns, plan sweep and timeline as phase 3, and in bf16 at the
+   batched form's wider passes (the generator's sites at 16 and 24 rows,
+   the discriminator's at 16);
 7. the CycleGAN training slice: ``CycleGANTrainer.fit`` for one epoch at
    256², depth 8, bf16, batch 8 on seeded uint8 caches (84 X and 88 Y
-   images of 286², 16 + 16 val): the full steps as CUDA-graph replays (each
-   runner's first step eager, as the capture's warm-up), the zip tail eager;
-   K1, K2 and S launches counted on the card (by the kernels' own
-   counters) against the counts derived from the step's structure, the
-   wrappers' counts against the steps the host ran or captured, Adam's step
-   count against the steps trained, a checkpoint round trip of all four
-   networks and Adams, and one step's losses and gradients through the
-   kernels against the same step on the plain path;
+   images of 286², 16 + 16 val), in the form the card's crossover selects
+   there (``batched_pass_max``: the unbatched form, 6 U-Net and 4 PatchGAN
+   passes a step): the full steps
+   as CUDA-graph replays (each runner's first step eager, as the capture's
+   warm-up), the zip tail eager; K1, K2 and S launches counted on the card
+   (by the kernels' own counters) against the counts derived from the
+   step's structure (``cyclegan_launches``), the wrappers' counts against
+   the steps the host ran or captured, Adam's step count against the steps
+   trained, a checkpoint round trip of all four networks and Adams, and one
+   step's losses and gradients through the kernels against the same step
+   on the plain path, then gan_tpu's batched form's step against the
+   unbatched form's with the same masks cut per application
+   (``check_forms``), in bf16 and fp32; the peak
+   memory of ``fit`` above what was allocated before its trainer was built
+   (``reset_memory``);
 8. the CycleGAN training numbers: the median eager step time, kernel and
    plain path in alternating rounds, image-pairs/s, peak device memory, and
-   a torch.profiler breakdown of two steps with the card's idle share;
+   a torch.profiler breakdown of two steps with the card's idle share; the
+   convs that launch cuDNN's ``dgrad2d_grouped_direct_kernel`` in one eager
+   step, by op and input shapes (``trace_dgrad``);
    8b. the graph step: two steps of the epoch runner (the second a replay)
    against two eager steps from the same state and draws, then the graph
    path's step time (an epoch of replays, in turns with the eager step),
    image-pairs/s, device time, idle share and kernels per step beside the
    eager paths', and the capture's seconds;
+   8c. the graph step in both forms (``form_sweep``), a fresh seeded
+   trainer each, timed in turns at every batch of ``FORM_BATCHES`` (1 to
+   32), each form forced, with the launches of its first epoch counted on
+   the card against its derivation; at batch 8 also each form's device
+   time by kernel group and idle share; then the batches where the batched
+   form won, beside the form ``fit`` runs (``batched_pass_max``);
+   8d. ``fit`` for one epoch at batch 4 (the reference's), which runs the
+   batched form at 256², with phase 7's gates of ``fit`` (``check_fit``:
+   launches on the card against the batched derivation, val steps
+   included);
 9. the Pix2Pix predict slice: ``Pix2PixTrainer`` at 256², depth 8, bf16,
    seeded weights with non-zero batch-norm betas, restored through the
    checkpoint manager, ``generate_batched`` on 32 seeded uint8 images with
@@ -115,15 +136,23 @@ Phases, each printed; any failure raises and the script exits non-zero:
     ``fit`` for one epoch at batch 4 (graph replays, a partial tail, a val
     pass), with ``--remat off`` and then ``--remat on`` from the same seeded
     state: launches counted on the card against the derivation (with remat
-    the backward recomputes each walked generator pass's stem and norms),
-    the checkpoint round trip, the two settings' losses, parameters and
-    Adam states bit for bit, one step of the remat trainer through the
-    kernels against the plain path, each setting's peak memory, graph step
-    time and idle share. 14e: predict of both models on 32 images against
-    the plain path. 14f: the remat frontier that ``use_remat`` rests on,
-    graph step ms and peak memory off and on, for Pix2Pix at 512², batch
-    1, 4, 16 and 64, CycleGAN at 512², batch 1, 4 and 16, and Pix2Pix at
-    256², batch 128. Alone, after the build: ``python3 -c "import
+    the generators' backward recomputes each generator pass's stem and
+    norms once), the checkpoint round trip, the two settings' losses,
+    parameters and Adam states bit for bit, one step of the remat trainer
+    through the kernels against the plain path, each setting's peak memory,
+    graph step time and idle share; for CycleGAN also the batched form
+    against the unbatched one (``check_forms``), the dgrad trace, both
+    forms' graph steps at batch 1, 2 and 4 (``form_sweep``, each form's
+    launches counted on the card; device time by group at 4), and both
+    forms with remat on at batch 4 (their launches counted too). 14e: predict of
+    both models on 32 images against the plain path. 14f: the remat
+    frontier that ``use_remat`` rests on, graph step ms and peak memory
+    (above what was allocated before each trainer) off and on, each
+    capture epoch's launches counted on the card, for Pix2Pix
+    at 512², batch 1, 4, 16 and 64, CycleGAN at 512², batch 1, 4, 16, 48, 64
+    and 72, and Pix2Pix at 256², batch 128; per model the least-squares line
+    of the remat-free peaks and the line of its slope that under-predicts
+    no point. Alone, after the build: ``python3 -c "import
     chip_smoke as c, tempfile; c.tf32_off(); c.build.build();
     c.run_512(tempfile.mkdtemp(), 'card')"``.
 
@@ -163,7 +192,9 @@ from gan_tpu_torch.ops import build, conv, kernels, norm
 from gan_tpu_torch.train import base
 from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
-from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.train.cyclegan_trainer import (BATCHED_PASSES, UNBATCHED_PASSES,
+                                                   CycleGANTrainer, batched_pass_max,
+                                                   pass_widths)
 from gan_tpu_torch.tools import eval_quality
 from gan_tpu_torch.train.pix2pix_trainer import REMAT_FREE_PEAK, Pix2PixTrainer, use_remat
 
@@ -171,6 +202,7 @@ IMG_SIZE = 256
 BATCH = 16          # generate_batched's chunk
 N_IMAGES = 32       # two generator passes
 TRAIN_BATCH = 8     # the README's CycleGAN quick start
+REF_BATCH = 4       # the reference's CycleGAN batch, inside the card's batched range at 256²
 # training caches: 84 X rows make 10 full steps and a zip tail of 4 X and 8 Y rows
 N_TRAIN_X, N_TRAIN_Y, N_VAL = 84, 88, 16
 P2P_BATCH = 32      # the README's Pix2Pix quick start
@@ -232,11 +264,10 @@ SOURCES = {"instance_norm_fwd": "gan_tpu_torch/csrc/instance_norm.cu",
 REPLACES = {"instance_norm_fwd": "gan_tpu/ops/pallas_kernels.py:89",
             "instance_norm_bwd": "gan_tpu/ops/pallas_kernels.py:128",
             "stem_conv": "benchmarks/pallas_stem_proto.py:46"}
-CYCLEGAN_STEMS_PER_STEP = 10   # 6 generator and 4 discriminator forwards
 PIX2PIX_STEMS_PER_STEP = 3   # G(x), D(x, y), D(x, G(x)): one stem each
-# generator passes that one CycleGAN train step's backward walks (see
-# train_step_launches); with --remat each walk recomputes its pass's blocks
-CYCLEGAN_WALKED_PASSES = 2 * 4
+# the batches at which both CycleGAN forms are timed at each image size (phases
+# 8c and 14d): the sweep that sets the card's crossover (``batched_pass_max``)
+FORM_BATCHES = {256: (1, 2, 4, 8, 16, 32), 512: (1, 2, 4)}
 # phase 14: the 512² configuration, the reference's one published Pix2Pix run
 # (512², batch 4, SURVEY.md:460); CycleGAN at the same batch
 IMG_512 = 512
@@ -246,7 +277,8 @@ N_512_X, N_512_Y = 10, 12        # 2 full steps + a zip tail of 2 X and 4 Y rows
 # (model, image size, batch) of the remat frontier (14f), off and on
 FRONTIER = (("pix2pix", IMG_512, 1), ("pix2pix", IMG_512, 4), ("pix2pix", IMG_512, 16),
             ("pix2pix", IMG_512, 64), ("cyclegan", IMG_512, 1), ("cyclegan", IMG_512, 4),
-            ("cyclegan", IMG_512, 16), ("pix2pix", IMG_SIZE, P2P_BENCH_BATCH))
+            ("cyclegan", IMG_512, 16), ("cyclegan", IMG_512, 48), ("cyclegan", IMG_512, 64),
+            ("cyclegan", IMG_512, 72), ("pix2pix", IMG_SIZE, P2P_BENCH_BATCH))
 FRONTIER_STEPS = 3   # graph steps per timed epoch of the frontier
 
 
@@ -259,25 +291,63 @@ def disc_norm_sites(img_size: int) -> tuple:
 DISC_NORM_SITES = disc_norm_sites(IMG_SIZE)
 
 
+def cyclegan_steps(img_size: int) -> list[tuple[int, int, int]]:
+    """(bx, by, BATCHED_PASS_MAX) of each CycleGAN train step the paths run
+    at ``img_size``: fit's full steps and its zip tail (phases 7, 13c,
+    14d), the full step in both forms (the forms' gate), and both forms at
+    every batch of FORM_BATCHES (the forms' step times)."""
+    limit = batched_pass_max(img_size)
+    (nx, ny, b) = (N_TRAIN_X, N_TRAIN_Y, TRAIN_BATCH) if img_size == IMG_SIZE else (
+        N_512_X, N_512_Y, BATCH_512)
+    tail = (nx % b, min(b, ny - nx // b * b))
+    return [(b, b, limit), (*tail, limit)] + [
+        (n, n, form) for n in sorted({b, *FORM_BATCHES[img_size]}) for form in (n, -1)]
+
+
+def cyclegan_batches(img_size: int) -> tuple[set, set]:
+    """The batches of every generator and every discriminator pass of the
+    CycleGAN train steps the paths run at ``img_size`` (``cyclegan_steps``)."""
+    gen, disc = set(), set()
+    for bx, by, limit in cyclegan_steps(img_size):
+        if max(bx, by) <= limit:
+            gen |= set(pass_widths(BATCHED_PASSES, bx, by))
+            disc.add(bx + by)
+        else:
+            gen |= set(pass_widths(UNBATCHED_PASSES, bx, by))
+            disc |= {bx, by}
+    return gen, disc
+
+
 def stem_shapes(img_size: int) -> dict:
     """(batch, C_in) of every stem the paths run at ``img_size`` (256 or
     512) -> (what runs it, the gradient its training step takes: None for a
     forward only, False for dw, True for dx and dw, since D's input holds
-    the fake)."""
+    the fake and F's batched pass holds fake_y). CycleGAN's stems run at
+    every batch of ``cyclegan_batches``; its 3-channel form at the batched
+    form's widths is checked forward only."""
     if img_size == IMG_SIZE:
-        return {(P2P_BATCH, 1): ("Pix2Pix G, train step", False),
-                (P2P_BATCH, 2): ("Pix2Pix D on (input, target), train step", True),
-                (BATCH, 1): ("predict chunk, both models", None),
-                (TRAIN_BATCH, 1): ("CycleGAN G and D, train step", True),
-                (TRAIN_BATCH, 3): ("3-channel G and CycleGAN D", None),
-                (TRAIN_BATCH, 6): ("3-channel Pix2Pix D", None)}
-    return {(BATCH_512, 1): ("Pix2Pix G, CycleGAN G and D, train step", True),
-            (BATCH_512, 2): ("Pix2Pix D on (input, target), train step", True),
-            (BATCH, 1): ("predict chunk, both models", None),
-            (1, 1): ("Pix2Pix G at batch 1", False),
-            (1, 2): ("Pix2Pix D at batch 1", True),
-            (BATCH_512, 3): ("3-channel G and CycleGAN D", None),
-            (BATCH_512, 6): ("3-channel Pix2Pix D", None)}
+        shapes = {(P2P_BATCH, 1): ("Pix2Pix G, train step", False),
+                  (P2P_BATCH, 2): ("Pix2Pix D on (input, target), train step", True),
+                  (BATCH, 1): ("predict chunk, both models", None),
+                  (TRAIN_BATCH, 3): ("3-channel G and CycleGAN D", None),
+                  (TRAIN_BATCH, 6): ("3-channel Pix2Pix D", None)}
+        batch = TRAIN_BATCH
+    else:
+        shapes = {(BATCH_512, 1): ("Pix2Pix G, train step", False),
+                  (BATCH_512, 2): ("Pix2Pix D on (input, target), train step", True),
+                  (BATCH, 1): ("predict chunk, both models", None),
+                  (1, 1): ("Pix2Pix G at batch 1", False),
+                  (1, 2): ("Pix2Pix D at batch 1", True),
+                  (BATCH_512, 3): ("3-channel G and CycleGAN D", None),
+                  (BATCH_512, 6): ("3-channel Pix2Pix D", None)}
+        batch = BATCH_512
+    gen, disc = cyclegan_batches(img_size)
+    for n in sorted(gen | disc):
+        use = shapes.get((n, 1), ("", None))[0]
+        shapes[n, 1] = ((use + "; " if use else "") + "CycleGAN G and D passes, train step", True)
+    for n in pass_widths(BATCHED_PASSES, batch, batch):
+        shapes.setdefault((n, 3), ("3-channel CycleGAN G, batched pass", None))
+    return shapes
 
 
 _STARTED = time.perf_counter()
@@ -295,35 +365,54 @@ def norm_sites(img_size: int, depth: int) -> list[tuple[int, int]]:
     return down + up
 
 
-def train_step_launches(gen_norms: int, disc_norms: int, remat: bool = False) -> tuple[int, int]:
-    """(K1, K2) launches of one CycleGAN train step, from its structure.
+def cyclegan_batched(img_size: int, batch: int) -> bool:
+    """Whether a CycleGAN step at ``img_size`` whose wider domain has
+    ``batch`` rows runs gan_tpu's batched form (``CycleGANTrainer.passes``
+    with its switch at the card's crossover)."""
+    return batch <= batched_pass_max(img_size)
 
-    K1: every norm of the 6 generator and 4 discriminator forwards. K2: one
-    backward through every norm on a path from a network's total to its own
-    parameters; each ``autograd.grad`` walks its own graph:
-      gen_g: D_y(fake_y), G(x), F(fake_y) back to fake_y, G(fake_x), G(y);
-      gen_f: D_x(fake_x), F(y), G(fake_x) back to fake_x, F(fake_y), F(x);
-      disc_x, disc_y: D on the real and on the fake batch (stopping at it).
-    With ``remat`` each of those CYCLEGAN_WALKED_PASSES generator walks
-    first recomputes the pass's checkpointed blocks (a walk is its own graph
-    task, so a pass walked by both generators is recomputed twice): their
-    norms run K1 once more; K2 is unchanged.
+
+def cyclegan_passes(batched: bool) -> tuple[int, int]:
+    """(generator passes, discriminator passes) of a CycleGAN step: 3 U-Net
+    passes and D_x and D_y each on real and fake at once in the batched
+    form, 6 and 4 in the unbatched one."""
+    return (len(BATCHED_PASSES), 2) if batched else (len(UNBATCHED_PASSES), 4)
+
+
+def train_step_launches(gen_norms: int, disc_norms: int, batched: bool,
+                        remat: bool = False) -> tuple[int, int]:
+    """(K1, K2) launches of one CycleGAN train step in either form, from its
+    structure (``cyclegan_passes``).
+
+    K1: every norm of every generator and discriminator pass. K2: one
+    backward through every norm on a path from a gradient group's objective
+    to the group's parameters. Each group's ``autograd.grad`` is one graph
+    task, which walks each node once:
+      the generators: every generator pass, and the D_x and D_y passes that
+      hold fake_x and fake_y (both batched passes, or the two unbatched
+      passes on the fakes);
+      the discriminators: every discriminator pass, stopping at its input.
+    With ``remat`` the generators' walk first recomputes each generator
+    pass's checkpointed blocks, once (one task): their norms run K1 once
+    more; K2 is unchanged.
     """
-    k1 = 6 * gen_norms + 4 * disc_norms + (CYCLEGAN_WALKED_PASSES * gen_norms if remat else 0)
-    return k1, 2 * (4 * gen_norms + disc_norms) + 2 * 2 * disc_norms
+    gen, disc = cyclegan_passes(batched)
+    k1 = gen * gen_norms * (2 if remat else 1) + disc * disc_norms
+    return k1, gen * gen_norms + 2 * disc_norms + disc * disc_norms
 
 
-def cyclegan_launches(img_size: int, remat: bool = False) -> tuple[dict, dict]:
+def cyclegan_launches(img_size: int, batched: bool, remat: bool = False) -> tuple[dict, dict]:
     """Each kernel's launches in one CycleGAN train step and in one val
-    step at ``img_size``: the norms as ``train_step_launches`` derives them,
-    a stem per network forward, and with ``remat`` a stem per recomputed
-    generator walk."""
+    step at ``img_size`` in either form: the norms as
+    ``train_step_launches`` derives them, a stem per network pass, and with
+    ``remat`` a stem per recomputed generator pass."""
     gen, disc = len(norm_sites(img_size, generator_depth(img_size))), len(disc_norm_sites(img_size))
-    k1, k2 = train_step_launches(gen, disc, remat)
-    stems = CYCLEGAN_STEMS_PER_STEP + (CYCLEGAN_WALKED_PASSES if remat else 0)
+    k1, k2 = train_step_launches(gen, disc, batched, remat)
+    gen_passes, disc_passes = cyclegan_passes(batched)
+    stems = gen_passes * (2 if remat else 1) + disc_passes
     return ({"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": stems},
-            {"instance_norm_fwd": 6 * gen + 4 * disc, "instance_norm_bwd": 0,
-             "stem_conv": CYCLEGAN_STEMS_PER_STEP})
+            {"instance_norm_fwd": gen_passes * gen + disc_passes * disc, "instance_norm_bwd": 0,
+             "stem_conv": gen_passes + disc_passes})
 
 
 def pix2pix_launches(img_size: int, batch: int, training: bool, remat: bool = False) -> dict:
@@ -691,9 +780,11 @@ def k2_row(n: int, hw: int, c: int, dtype, g) -> tuple[float, tuple]:
     return max(errs), (k_ms, p_ms, lib_ms, b_ms)
 
 
-def check_backward(shapes) -> dict:
-    """Phase 6: K2 (and K1) against their plain versions at batch 8. Returns
-    per-shape K2 times and the largest error. Columns as in phase 3."""
+def check_backward(shapes, batched: list) -> dict:
+    """Phase 6: K2 (and K1) against their plain versions at batch 8 in both
+    dtypes, and at the (N, H = W, C) of ``batched`` in bf16 (the CycleGAN
+    batched form's wider passes). Returns per-shape K2 times at batch 8 and
+    the largest error. Columns as in phase 3."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     times, worst = {}, 0.0
     print(L2_NOTE)
@@ -702,6 +793,8 @@ def check_backward(shapes) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             err, times[(hw, c, dtype)] = k2_row(TRAIN_BATCH, hw, c, dtype, g)
             worst = max(worst, err)
+    for n, hw, c in batched:
+        worst = max(worst, k2_row(n, hw, c, torch.bfloat16, g)[0])
     hw, c = max(shapes, key=lambda s: s[0] * s[0] * s[1])
     print_max_clusters(TRAIN_BATCH, hw, c, backward=True)
     print(f"plans at {TRAIN_BATCH},{hw},{hw},{c} bf16, K2:")
@@ -984,7 +1077,7 @@ def check_step_paths(bf16, fp32, x, y, draws) -> None:
 
 
 def check_fit(trainer, make_trainer, fit, want: dict, want_host: dict, want_epoch: dict,
-              steps: int) -> tuple[dict, float]:
+              steps: int, floor: int) -> tuple[dict, float]:
     """``fit`` (one epoch, its full steps as CUDA-graph replays) with the
     kernels' launches counted on the card against the derivation ``want``,
     the wrappers' counts against ``want_host`` (the steps the host ran or
@@ -992,21 +1085,23 @@ def check_fit(trainer, make_trainer, fit, want: dict, want_host: dict, want_epoc
     ``want_epoch``; finite losses, every network changed, Adam's step count
     equal to the steps trained (no warm-up leaked), and a checkpoint round
     trip of every network and Adam. Returns the launches and the peak device
-    memory."""
-    before = {k: [p.detach().clone() for p in v] for k, v in trainer.params.items()}
+    memory above ``floor``, the bytes allocated before the trainer was built
+    (``reset_memory``)."""
+    before = {k: [p.detach().cpu() for p in v] for k, v in trainer.params.items()}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     (train_cost, val_cost, mgr), launches = device_launches(fit)
     fit_s = time.perf_counter() - t0
     host = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = (torch.cuda.max_memory_allocated() - floor) / 2**30
     captures = ", ".join(f"{'train' if key[0] else 'val'} {runner.capture_s:.2f} s"
                          for key, (runner, _, _) in trainer._runners.items())
     print(f"fit: {fit_s:.2f} s with the set-up; launches counted on the "
           f"card {launches}, expected {want}; by the wrappers {host}, expected {want_host}; "
           f"runner steps {trainer.epoch_counts}, expected {want_epoch}; graph captures: "
-          f"{captures}; peak device memory {peak:.2f} GiB")
+          f"{captures}; peak device memory {peak:.2f} GiB above the {floor / 2**30:.2f} GiB "
+          "allocated before the trainer was built")
     if launches != want:
         raise AssertionError("launch counts differ from the step's derivation")
     if host != want_host or trainer.epoch_counts != want_epoch:
@@ -1016,7 +1111,7 @@ def check_fit(trainer, make_trainer, fit, want: dict, want_host: dict, want_epoc
     if not all(math.isfinite(v[0]) for d in (train_cost, val_cost) for v in d.values()):
         raise AssertionError("a loss is not finite")
     unchanged = [k for k in trainer.nets
-                 if all(torch.equal(a, b) for a, b in zip(before[k], trainer.params[k]))]
+                 if all(torch.equal(a, b.cpu()) for a, b in zip(before[k], trainer.params[k]))]
     if unchanged:
         raise AssertionError(f"fit left {unchanged} unchanged")
     del before
@@ -1116,6 +1211,194 @@ def check_graph_step(fitted, make_trainer, caches: tuple, batch: int):
     return graph
 
 
+def unbatched_masks(masks: list, bx: int, by: int) -> list:
+    """The batched form's keep-masks (``StepDraws.masks``: one list per
+    pass) cut into the unbatched form's (one list per application), so that
+    every image keeps its mask."""
+    width = {outputs[0]: w for (_, _, outputs), w in
+             zip(UNBATCHED_PASSES, pass_widths(UNBATCHED_PASSES, bx, by))}
+    cut = {}
+    for (_, _, outputs), sites in zip(BATCHED_PASSES, masks):
+        parts = [m.split([width[o] for o in outputs]) for m in sites]
+        cut.update((o, [p[j] for p in parts]) for j, o in enumerate(outputs))
+    return [cut[outputs[0]] for _, _, outputs in UNBATCHED_PASSES]
+
+
+def check_forms(bf16, fp32, x, y) -> None:
+    """Gate: one CycleGAN train step's losses and per-network gradients in
+    gan_tpu's batched form against the unbatched form (``BATCHED_PASS_MAX``
+    set to the batch, then to -1), from the same state and batch, the
+    unbatched form taking the batched form's dropout masks cut per
+    application; nothing is
+    updated. Within ``STEP_TOL`` in bf16 and in fp32 (TF32 off): the same
+    arithmetic per image, in convs of other batches, whose algorithms and
+    sums may differ."""
+    b = x.shape[0]
+    for label, trainer, xs, ys in (("bf16", bf16, x, y), ("fp32", fp32, x.float(), y.float())):
+        runs = []
+        try:
+            trainer.BATCHED_PASS_MAX = b
+            masks = trainer._step_draws(0, 0, 0).masks
+            runs.append(trainer.gradients(xs, ys, masks=masks))
+            trainer.BATCHED_PASS_MAX = -1
+            runs.append(trainer.gradients(xs, ys, masks=unbatched_masks(masks, b, b)))
+        finally:
+            del trainer.BATCHED_PASS_MAX
+        (got, got_losses), (want, want_losses) = runs
+        loss_err = ((got_losses - want_losses).abs() / want_losses.abs()).max().item()
+        flat = lambda gs: torch.cat([g.flatten().float() for g in gs])
+        grad_err = {k: _rel(flat(got[k]), flat(want[k])) for k in got}
+        print(f"{label} step at batch {b}, batched form vs unbatched form: losses "
+              f"{got_losses.tolist()} vs {want_losses.tolist()}, max relative error "
+              f"{loss_err:.3e} (tol {STEP_TOL[label][0]:g}); gradient relative L2 error "
+              f"{ {k: f'{v:.3e}' for k, v in grad_err.items()} } (tol {STEP_TOL[label][1]:g})")
+        if loss_err > STEP_TOL[label][0] or max(grad_err.values()) > STEP_TOL[label][1]:
+            raise AssertionError("the batched form's step disagrees with the unbatched form's")
+
+
+FORM_ROUNDS = 3   # rounds of timed graph epochs per form, in turns there and back
+
+
+def counted_epoch(epoch, per_step: dict, steps: int, what: str):
+    """``epoch()``, an epoch of ``steps`` full train steps (a runner's
+    warm-up step or replays; a capture runs nothing), with the kernels'
+    launches counted on the card (``device_launches``) held to ``steps``
+    times the derived ``per_step``."""
+    out, got = device_launches(epoch)
+    want = {name: n * steps for name, n in per_step.items()}
+    print(f"{what}: launches counted on the card {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{what}: launch counts differ from the step's derivation")
+    return out
+
+
+def form_numbers(tmp: str, size: int, batch: int, profile: bool, remat: str = "off") -> dict:
+    """The CycleGAN graph step in both forms at ``size`` and ``batch``: one
+    fresh seeded trainer per form ('batched' with ``BATCHED_PASS_MAX`` set
+    to the batch, 'unbatched' with -1) over the same resident rows; an
+    epoch of GRAPH_STEPS steps that captures each graph, its launches
+    counted on the card against the form's derivation (``counted_epoch``),
+    then FORM_ROUNDS rounds of timed epochs of GRAPH_STEPS replays in turns
+    (batched, unbatched, unbatched, batched), CUDA events around each.
+    Prints ms and image-pairs/s per form with every reading, and with
+    ``profile`` each form's device time per step by kernel group and the
+    card's idle share. Returns the median ms per form."""
+    trainers = {}
+    for form, limit in (("batched", batch), ("unbatched", -1)):
+        trainers[form] = seeded_trainer("cyclegan", gan_config("cyclegan", tmp, size, batch, remat))
+        trainers[form].BATCHED_PASS_MAX = limit
+    caches = tuple(torch.from_numpy(a).to("cuda") for a in train_caches(
+        "cyclegan", (batch, batch), size, np.random.default_rng(SEED + 22)))
+    rows = tuple(torch.arange(GRAPH_STEPS * batch, device="cuda").remainder(batch).view(
+        GRAPH_STEPS, batch) for _ in caches)
+    epochs = {form: functools.partial(t._cached_epoch, caches, rows, 1, True)
+              for form, t in trainers.items()}
+    for form, epoch in epochs.items():
+        per_step = cyclegan_launches(size, form == "batched", remat == "on")[0]
+        losses = counted_epoch(epoch, per_step, GRAPH_STEPS,
+                               f"{form} form, {size}² batch {batch}, remat {remat}")
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"{form} form: a loss is not finite")
+    times = {form: [] for form in epochs}
+    for _ in range(FORM_ROUNDS):
+        for form in ("batched", "unbatched", "unbatched", "batched"):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            epochs[form]()
+            end.record()
+            end.synchronize()
+            times[form].append(start.elapsed_time(end) / GRAPH_STEPS)
+    med = {form: float(np.median(t)) for form, t in times.items()}
+    for form, t in times.items():
+        print(f"{form} form, graph step at {size}², batch {batch}, remat {remat}: median "
+              f"{med[form]:.3f} ms (readings {[round(r, 3) for r in t]}), "
+              f"{batch / med[form] * 1e3:.2f} image-pairs/s; runner {trainers[form].epoch_counts}")
+    print(f"batched / unbatched step time at {size}², batch {batch}, remat {remat}: "
+          f"{med['batched'] / med['unbatched']:.3f}")
+    if profile:
+        for form, epoch in epochs.items():
+            print(f"{form} form, device time per train step:")
+            busy_us, _ = profile_device(epoch, 1, GRAPH_STEPS)
+            print(f"  {busy_us:10.2f} us  sum of kernel time; the card is idle "
+                  f"{1 - busy_us / 1e3 / med[form]:.1%} of the {med[form]:.3f} ms step")
+    return med
+
+
+def form_sweep(tmp: str, size: int, profile_batch: int, smi: str) -> None:
+    """Both forms' graph steps (``form_numbers``, remat off) at every batch
+    of FORM_BATCHES[size], profiled at ``profile_batch``; then the table of
+    their ratio and the batches where the batched form was the faster,
+    beside the form ``fit`` runs there (``batched_pass_max``)."""
+    meds = {}
+    for batch in FORM_BATCHES[size]:
+        print(f"both forms at {size}², batch {batch} ({smi}):")
+        meds[batch] = form_numbers(tmp, size, batch, profile=batch == profile_batch)
+        reset_memory()
+    limit = batched_pass_max(size)
+    print(f"\nCycleGAN graph step by form at {size}², remat off ({smi}):")
+    print(f"{'batch':>6} {'batched_ms':>11} {'unbatched_ms':>13} {'ratio':>6} {'faster':>10} "
+          f"{'fit runs':>10}")
+    for batch, med in meds.items():
+        faster = "batched" if med["batched"] < med["unbatched"] else "unbatched"
+        print(f"{batch:>6} {med['batched']:>11.3f} {med['unbatched']:>13.3f} "
+              f"{med['batched'] / med['unbatched']:>6.3f} {faster:>10} "
+              f"{'batched' if batch <= limit else 'unbatched':>10}")
+    won = [b for b, med in meds.items() if med["batched"] < med["unbatched"]]
+    print(f"the batched form was faster at batch {won or 'none'}; fit runs it at batch <= "
+          f"{limit} at {size}² (batched_pass_max)")
+
+
+DGRAD = "dgrad2d_grouped_direct_kernel"   # the cuDNN kernel PERF.md asks about
+
+
+def trace_dgrad(step) -> None:
+    """Which convolutions launch cuDNN's ``DGRAD`` kernel: a torch.profiler
+    trace of one eager ``step`` with its ops' input shapes recorded; per
+    launching op and shapes, the launches and device µs, their sum and its
+    share of the step's kernel time. Not a gate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    calls, total_us, device_us = {}, 0.0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and DGRAD in e.name:
+            device_us += e.time_range.elapsed_us()
+        for k in getattr(e, "kernels", []):
+            total_us += k.duration
+            if DGRAD in k.name:
+                chain, p = [e.name], e.cpu_parent
+                while p is not None and len(chain) < 3:
+                    chain.append(p.name)
+                    p = p.cpu_parent
+                key = (" < ".join(chain), str(e.input_shapes)[:200])
+                n, us = calls.get(key, (0, 0.0))
+                calls[key] = (n + 1, us + k.duration)
+    dgrad_us = sum(us for _, us in calls.values())
+    print(f"{DGRAD} in one eager train step: {dgrad_us:.2f} us attributed to ops "
+          f"({device_us:.2f} us among the device events), of {total_us:.2f} us of kernel time "
+          f"attributed to ops ({dgrad_us / max(total_us, 1e-9):.1%}); by launching op (< its "
+          "callers) and its input shapes:")
+    for (chain, shapes), (n, us) in sorted(calls.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {us:10.2f} us  {n:3d} launches  {chain}  {shapes}")
+
+
+def reset_memory() -> int:
+    """Collects what earlier work left to the garbage collector, returns the
+    allocator's cached blocks to the card and resets the peak. Returns the
+    bytes still allocated: the floor that a peak reading of the work that
+    follows subtracts."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def peak_gib(fn, context) -> float:
     """Peak device memory, GiB, over one call of ``fn`` (with everything else
     that is resident)."""
@@ -1169,12 +1452,14 @@ def step_numbers(step, batch: int, peak: float, what: str) -> dict:
     return {"runs": runs, "profile": profile_paths(paths, 2, runs, "train step")}
 
 
-def run_training(tmp: str) -> dict:
-    """Phases 7 and 8. Returns the kernel launch counts of the main-path run."""
+def run_training(tmp: str, smi: str) -> dict:
+    """Phases 7 and 8. Returns the kernel launch counts of the main-path runs
+    (the ``fit`` epochs of 7 and 8d)."""
     argv = ["--input-images", tmp, "--target-images", tmp, "--output", tmp, "--train",
             "--epochs", "1", "--img-size", str(IMG_SIZE), "--batch-size", str(TRAIN_BATCH),
             "--dtype", "bf16"]
     cfg = parse_cyclegan(argv)
+    floor = reset_memory()
     trainer = CycleGANTrainer(cfg)
     offsets_from_seed(trainer)
     sizes = {k: sum(p.numel() for p in v) / 1e6 for k, v in trainer.params.items()}
@@ -1196,7 +1481,7 @@ def run_training(tmp: str) -> dict:
 
     train_steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     val_steps = -(-N_VAL // TRAIN_BATCH)
-    per_train, per_val = cyclegan_launches(IMG_SIZE)
+    per_train, per_val = cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH))
     want, want_host, want_epoch = epoch_plan_counts(
         per_train, per_val, divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
         divmod(N_VAL, TRAIN_BATCH))
@@ -1211,7 +1496,7 @@ def run_training(tmp: str) -> dict:
                                  checkpoint_manager=mgr), mgr)
 
     launches, peak = check_fit(trainer, lambda: CycleGANTrainer(cfg), fit, want, want_host,
-                               want_epoch, train_steps)
+                               want_epoch, train_steps, floor)
     # the host traces the backward of a step it runs eagerly or captures; a
     # replay runs the captured K2 launches without calling it
     print(f"InstanceNormFunction.backward calls {bwd_calls[0]}, expected "
@@ -1227,8 +1512,9 @@ def run_training(tmp: str) -> dict:
     y = single_jitter_batch(u8y, gy, img_size=IMG_SIZE, dtype=torch.bfloat16)
     trainer32 = CycleGANTrainer(parse_cyclegan(argv[:-1] + ["fp32"]))
     trainer32.load_state(trainer.state())
-    check_step_paths(trainer, trainer32, x, y,
-                     lambda t: [t._draws(SEED, 0, 0, 0, app) for app in range(6)])
+    check_step_paths(trainer, trainer32, x, y, lambda t: [
+        t._draws(SEED, 0, 0, 0, k) for k in range(len(t.passes(TRAIN_BATCH, TRAIN_BATCH)))])
+    check_forms(trainer, trainer32, x, y)
     del trainer32
 
     phase(f"8. CycleGAN training numbers: train step at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}, "
@@ -1236,12 +1522,37 @@ def run_training(tmp: str) -> dict:
     # what the eager step runs: draws, jitter, gradients, four Adam updates
     eager_step = lambda: trainer._step(u8x, u8y, 0, 0, 0)
     phase8 = step_numbers(eager_step, TRAIN_BATCH, peak, "image-pairs")
+    trace_dgrad(eager_step)
 
     phase(f"8b. CycleGAN graph step: the epoch runner's CUDA graph against the eager step, "
           f"batch {TRAIN_BATCH}")
     caches = tuple(torch.from_numpy(a).to("cuda") for a in (train_x, train_y))
     graph = check_graph_step(trainer, lambda: CycleGANTrainer(cfg), caches, TRAIN_BATCH)
     graph_numbers(graph, eager_step, caches, TRAIN_BATCH, phase8, "image-pairs")
+    del graph, caches, trainer
+
+    phase(f"8c. CycleGAN graph step in both forms, {IMG_SIZE}², batch "
+          f"{', '.join(map(str, FORM_BATCHES[IMG_SIZE]))}")
+    form_sweep(tmp, IMG_SIZE, TRAIN_BATCH, smi)
+
+    phase(f"8d. CycleGAN fit at {IMG_SIZE}², batch {REF_BATCH}, in the batched form")
+    if not cyclegan_batched(IMG_SIZE, REF_BATCH):
+        raise AssertionError(f"batch {REF_BATCH} does not run the batched form at {IMG_SIZE}²")
+    cfg4 = parse_cyclegan(argv[:argv.index("--batch-size") + 1] + [str(REF_BATCH)]
+                          + argv[argv.index("--batch-size") + 2:])
+    floor = reset_memory()
+    trainer = CycleGANTrainer(cfg4)
+    offsets_from_seed(trainer)
+    plan = (divmod(min(N_TRAIN_X, N_TRAIN_Y), REF_BATCH), divmod(N_VAL, REF_BATCH))
+    want, want_host, want_epoch = epoch_plan_counts(*cyclegan_launches(IMG_SIZE, True), *plan)
+    mgr4 = CheckpointManager(os.path.join(tmp, "batch_4_checkpoints"), max_to_keep=1)
+    print(f"1 epoch: {plan[0][0] + (plan[0][1] > 0)} train steps and "
+          f"{plan[1][0] + (plan[1][1] > 0)} val steps in the batched form")
+    counted, _ = check_fit(trainer, lambda: CycleGANTrainer(cfg4), lambda: (*trainer.fit(
+        train_x, train_y, val_x, val_y, test, tmp, checkpoint_manager=mgr4), mgr4), want,
+        want_host, want_epoch, plan[0][0] + (plan[0][1] > 0), floor)
+    for name, n in counted.items():
+        launches[name] += n
     return launches
 
 
@@ -1279,6 +1590,7 @@ def run_pix2pix_training(tmp: str) -> dict:
     argv = ["--data", tmp, "--output", tmp, "--train", "--epochs", "1",
             "--img-size", str(IMG_SIZE), "--batch-size", str(P2P_BATCH), "--dtype", "bf16"]
     cfg = parse_pix2pix(argv)
+    floor = reset_memory()
     trainer = Pix2PixTrainer(cfg)
     offsets_from_seed(trainer)
     rng = np.random.default_rng(SEED + 8)
@@ -1299,7 +1611,7 @@ def run_pix2pix_training(tmp: str) -> dict:
         return (*trainer.fit(train, val, test, tmp, checkpoint_manager=mgr), mgr)
 
     launches, peak = check_fit(trainer, lambda: Pix2PixTrainer(cfg), fit, want, want_host,
-                               want_epoch, train_steps)
+                               want_epoch, train_steps, floor)
 
     u8 = torch.from_numpy(train[:P2P_BATCH]).to("cuda")
     x, y = paired_jitter_batch(u8, torch.Generator(device="cuda").manual_seed(SEED + 4),
@@ -1752,7 +2064,8 @@ def run_host_data(tmp: str, smi: str) -> dict:
               for paths in (xs, ys)]
     got = recorded_epochs(streamed)
     want, want_host, want_epoch = epoch_plan_counts(
-        *cyclegan_launches(IMG_SIZE), divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
+        *cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH)),
+        divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
         divmod(N_VAL, TRAIN_BATCH))
     kernels.reset_launches()
     _, counted = device_launches(lambda: streamed.fit(cg_x, cg_y, *val, val_u8[0][:1], tmp))
@@ -1928,6 +2241,7 @@ def fit_512(kind: str, tmp: str, smi: str) -> dict:
     for remat in ("off", "on"):
         on = remat == "on"
         cfg = gan_config(kind, tmp, IMG_512, BATCH_512, remat)
+        floor = reset_memory()
         trainer = seeded_trainer(kind, cfg)
         if trainer.sampler.remat != on:
             raise AssertionError(f"--remat {remat} built a generator with remat {not on}")
@@ -1937,7 +2251,7 @@ def fit_512(kind: str, tmp: str, smi: str) -> dict:
             tails = (pix2pix_launches(IMG_512, plan[0][1], True, on),
                      pix2pix_launches(IMG_512, plan[1][1], False, on))
         else:
-            per, tails = cyclegan_launches(IMG_512, on), None
+            per, tails = cyclegan_launches(IMG_512, cyclegan_batched(IMG_512, BATCH_512), on), None
         want, want_host, want_epoch = epoch_plan_counts(*per, *plan, tails)
         print(f"remat {remat}: 1 epoch of {steps} train steps (full {plan[0]}) and val (full "
               f"{plan[1]}); per full train step {per[0]}, per tail "
@@ -1949,7 +2263,7 @@ def fit_512(kind: str, tmp: str, smi: str) -> dict:
             return (*trainer.fit(*train, *val, val[0][:1], tmp, checkpoint_manager=mgr), mgr)
 
         counted, peaks[remat] = check_fit(trainer, lambda: seeded_trainer(kind, cfg), fit, want,
-                                          want_host, want_epoch, steps)
+                                          want_host, want_epoch, steps, floor)
         for name, n in counted.items():
             launches[name] = launches.get(name, 0) + n
         trainers[remat] = trainer
@@ -1967,16 +2281,26 @@ def fit_512(kind: str, tmp: str, smi: str) -> dict:
     else:
         x, y = (single_jitter_batch(u, gen, img_size=IMG_512, dtype=torch.bfloat16)
                 for u, gen in zip(u8, (gx, gy)))
-        draws = lambda t: [t._draws(SEED, 0, 0, 0, app) for app in range(6)]
+        draws = lambda t: [t._draws(SEED, 0, 0, 0, k)
+                           for k in range(len(t.passes(BATCH_512, BATCH_512)))]
     trainer32 = seeded_trainer(kind, gan_config(kind, tmp, IMG_512, BATCH_512, "on", "fp32"))
     trainer32.load_state(trainers["on"].state())
     check_step_paths(trainers["on"], trainer32, x, y, draws)
+    if kind == "cyclegan":
+        check_forms(trainers["on"], trainer32, x, y)
     del trainer32
 
     caches = tuple(torch.from_numpy(a).to("cuda") for a in train)
     for remat in ("off", "on"):
         print(f"remat {remat}, graph step at {IMG_512}², batch {BATCH_512} ({smi}):")
         graph_step_numbers(trainers[remat], caches, BATCH_512)
+    if kind == "cyclegan":
+        trace_dgrad(lambda: trainers["off"]._step(*u8, 0, 0, 0))
+        del trainers, caches
+        reset_memory()
+        form_sweep(tmp, IMG_512, BATCH_512, smi)
+        print(f"both forms at {IMG_512}², batch {BATCH_512}, remat on ({smi}):")
+        form_numbers(tmp, IMG_512, BATCH_512, profile=False, remat="on")
     return launches
 
 
@@ -2003,7 +2327,9 @@ def remat_frontier(tmp: str, smi: str) -> None:
     """14f: graph step ms and peak device memory with remat off and on at
     each FRONTIER configuration, each on a fresh seeded trainer over a
     resident cache of one batch: an epoch of FRONTIER_STEPS steps (the
-    warm-up, the capture, replays), then a timed epoch of FRONTIER_STEPS
+    warm-up, the capture, replays) with its launches counted on the card
+    against the derivation (``counted_epoch``; CycleGAN in the form
+    ``batched_pass_max`` selects: batched at batch 1), then a timed epoch of FRONTIER_STEPS
     replays; the peak covers both, the graph pool included. Then, per model,
     the remat-free peaks fitted to a line in 256²-image equivalents (what
     ``use_remat`` rests on) beside ``REMAT_FREE_PEAK``, and what ``auto``
@@ -2011,20 +2337,22 @@ def remat_frontier(tmp: str, smi: str) -> None:
     rows = []
     for kind, size, batch in FRONTIER:
         for remat in ("off", "on"):
+            floor = reset_memory()
             trainer = seeded_trainer(kind, gan_config(kind, tmp, size, batch, remat))
             caches = tuple(torch.from_numpy(a).to("cuda") for a in train_caches(
                 kind, (batch, batch), size, np.random.default_rng(SEED + 21)))
             idx = tuple(torch.arange(FRONTIER_STEPS * batch, device="cuda").view(
                 FRONTIER_STEPS, batch).remainder(batch) for _ in caches)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            first = trainer._cached_epoch(caches, idx, 0, True)
-            torch.cuda.synchronize()
+            on = remat == "on"
+            per_step = (cyclegan_launches(size, cyclegan_batched(size, batch), on)[0]
+                        if kind == "cyclegan" else pix2pix_launches(size, batch, True, on))
+            first = counted_epoch(lambda: trainer._cached_epoch(caches, idx, 0, True), per_step,
+                                  FRONTIER_STEPS, f"  {kind} {size}² batch {batch} remat {remat}")
             t0 = time.perf_counter()
             second = trainer._cached_epoch(caches, idx, 1, True)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) / FRONTIER_STEPS * 1e3
-            peak = torch.cuda.max_memory_allocated() / 2**30
+            peak = (torch.cuda.max_memory_allocated() - floor) / 2**30
             if not (torch.isfinite(first).all() and torch.isfinite(second).all()):
                 raise AssertionError(f"{kind} {size}² batch {batch} remat {remat}: a loss is "
                                      "not finite")
@@ -2035,8 +2363,6 @@ def remat_frontier(tmp: str, smi: str) -> None:
             print(f"  {kind} {size}² batch {batch} remat {remat}: {ms:.3f} ms a step, peak "
                   f"{peak:.2f} GiB", flush=True)
             del trainer, caches, idx, first, second
-            gc.collect()
-            torch.cuda.empty_cache()
     total = device_bytes(torch.device("cuda"))
     print(f"\nremat frontier, graph steps, bf16 ({smi}; {total / 2**30:.2f} GiB on the card):")
     print(f"{'model':>9} {'size':>5} {'batch':>6} {'256²-eq':>8} {'off_ms':>9} {'on_ms':>9} "
@@ -2055,10 +2381,17 @@ def remat_frontier(tmp: str, smi: str) -> None:
     for kind in ("pix2pix", "cyclegan"):
         pts = [(b * (s / 256) ** 2, by[k, s, b, "off"][1]) for k, s, b in FRONTIER if k == kind]
         slope, fixed = np.polyfit([p[0] for p in pts], [p[1] for p in pts], 1)
+        # the same slope (to 4 decimals), raised until no point as printed (to
+        # 0.01 GiB) lies above the line (REMAT_FREE_PEAK)
+        covering = math.ceil(max(round(peak, 2) - round(slope, 4) * eq for eq, peak in pts)
+                             * 1000) / 1000
+        budget = (1 - DEVICE_CACHE_FRACTION) * total / 2**30
         print(f"{kind}: remat-free peak ~ {fixed:.3f} GiB + {slope:.4f} GiB per 256²-image "
-              f"equivalent (least squares over {len(pts)} configurations); auto turns remat on "
-              f"past {((1 - DEVICE_CACHE_FRACTION) * total / 2**30 - fixed) / slope:.0f} "
-              f"equivalents on this card")
+              f"equivalent (least squares over {len(pts)} configurations; residuals "
+              f"{[round(float(peak - fixed - slope * eq), 3) for eq, peak in pts]} GiB), auto "
+              f"would turn remat on past {(budget - fixed) / slope:.0f} equivalents on this card; "
+              f"the line that under-predicts no point: {covering:.3f} GiB + {slope:.4f} GiB, on "
+              f"past {(budget - covering) / round(slope, 4):.0f}")
 
 
 def run_512(tmp: str, smi: str) -> dict:
@@ -2155,7 +2488,10 @@ def main() -> int:
 
     phase(f"6. instance-norm backward kernel (K2) vs plain, training shapes, batch {TRAIN_BATCH}")
     step_sites = sites + list(DISC_NORM_SITES)
-    b = check_backward(sorted(set(step_sites)))
+    widths = pass_widths(BATCHED_PASSES, TRAIN_BATCH, TRAIN_BATCH)
+    b = check_backward(sorted(set(step_sites)), sorted(
+        {(n, hw, c) for n in widths if n != TRAIN_BATCH for hw, c in sites}
+        | {(2 * TRAIN_BATCH, hw, c) for hw, c in DISC_NORM_SITES}))
     k2_pass = [sum(b["times"][(hw, c, torch.bfloat16)][i] for hw, c in step_sites)
                for i in range(4)]
     print(f"{len(step_sites)} sites of one bf16 generator and one discriminator backward at batch "
@@ -2166,7 +2502,7 @@ def main() -> int:
 
     phase(f"7. CycleGAN training slice: fit at {IMG_SIZE}², bf16, batch {TRAIN_BATCH}")
     with tempfile.TemporaryDirectory() as tmp:
-        add(run_training(tmp))
+        add(run_training(tmp, smi))
 
     phase(f"9. Pix2Pix predict slice: {IMG_SIZE}², depth 8, bf16, per-image batch norm")
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,12 +1,18 @@
 """What the Pix2Pix and CycleGAN trainers share.
 
 ``GANTrainer`` holds the networks, one Adam per network and the draws. A
-subclass builds its networks and writes ``_losses(x, y, generators)``, which
-returns ({network: its total loss}, the stacked metrics); the step is then
-common: each network's gradient is its own ``torch.autograd.grad`` of its
-own total with respect to its own parameters, which gives the reference's
-one tape per network (gan_tpu's ``sg_tree`` partition of one combined
-scalar), and all gradients are taken before any network is updated.
+subclass builds its networks, declares its gradient groups (``groups``:
+tuples of network names) and writes ``_losses(x, y, generators)``, which
+returns (one objective per group, the stacked metrics). The step is then
+common: each group takes one ``torch.autograd.grad`` of its objective with
+respect to all of its networks' parameters, one graph task that walks each
+node of the forward once, and all gradients are taken before any network is
+updated. A group's objective must give each of its networks the gradient of
+that network's own total (the reference's one tape per network, gan_tpu's
+``sg_tree`` partition of one combined scalar): a network alone in its group
+takes its total, and a group of several takes a sum whose every term
+reaches each network as that network's total would (the CycleGAN trainer's
+module docstring gives its argument).
 
 Draws come from ``torch.Generator``s seeded as a pure function of a key
 (``_draws``), so a re-run repeats them. ``generate`` keys its dropout by
@@ -101,9 +107,9 @@ def write_raw(preds: np.ndarray, output_path: str, png_names) -> None:
 
 class StepDraws(NamedTuple):
     """One step's random draws, in the eager step's call order: ``masks``,
-    per generator application, the keep-mask of each dropout site; ``jitter``,
-    per jittered image batch, (row offsets, column offsets, flips); empty for
-    a val step."""
+    per generator pass, the keep-mask of each dropout site; ``jitter``, per
+    jittered image batch, (row offsets, column offsets, flips); empty for a
+    val step."""
     masks: list
     jitter: list
 
@@ -112,11 +118,13 @@ class StepDraws(NamedTuple):
 
 
 class GANTrainer:
-    """``nets`` maps network names to modules, in the order the step takes
-    their gradients; ``sampler`` names the generator that ``generate`` runs."""
+    """``nets`` maps network names to modules; ``groups`` partitions the
+    names into gradient groups, in the order the step takes their gradients;
+    ``sampler`` names the generator that ``generate`` runs."""
 
-    def __init__(self, config, nets: dict, sampler: str):
+    def __init__(self, config, nets: dict, groups: tuple, sampler: str):
         self.config = config
+        self.groups = groups
         self.device = default_device()
         self.dtype = torch_dtype(config.dtype)
         self.nets = {name: net.to(self.device) for name, net in nets.items()}
@@ -158,14 +166,17 @@ class GANTrainer:
 
     def gradients(self, x, y, generators=None, masks=None):
         """({network: gradients of its total w.r.t. its parameters}, losses),
-        with nothing updated. x, y: normalized (N, S, S, C) batches. Dropout
-        draws from ``generators`` or takes ``masks`` (as ``StepDraws.masks``);
-        with neither it is off."""
-        totals, losses = self._losses(x, y, generators, masks)
+        with nothing updated: one ``autograd.grad`` per gradient group. x, y:
+        normalized (N, S, S, C) batches. Dropout draws from ``generators``
+        or takes ``masks`` (as ``StepDraws.masks``); with neither it is
+        off."""
+        objectives, losses = self._losses(x, y, generators, masks)
         grads = {}
-        for i, name in enumerate(self.nets):
-            grads[name] = torch.autograd.grad(totals[name], self.params[name],
-                                              retain_graph=i < len(self.nets) - 1)
+        for i, (group, objective) in enumerate(zip(self.groups, objectives)):
+            flat = torch.autograd.grad(objective, [p for n in group for p in self.params[n]],
+                                       retain_graph=i < len(self.groups) - 1)
+            for name in group:
+                grads[name], flat = flat[:len(self.params[name])], flat[len(self.params[name]):]
         return grads, losses.detach()
 
     def apply_gradients(self, grads: dict) -> None:

@@ -4,23 +4,49 @@ It holds the reference's four networks: the instance-norm U-Net generators
 g: X→Y and f: Y→X, the PatchGAN discriminators of each domain, and one Adam
 per network.
 
-**The step** (gan_tpu_torch/train/base.py). gan_tpu makes one fused
-backward over a combined scalar with every other network's parameters
-stop-gradiented, and lets XLA merge the duplicated forwards. Eager PyTorch
-merges nothing, so here each forward runs once: six generator applications
-(fake_y = G(x), cycled_x = F(fake_y), fake_x = F(y), cycled_y = G(fake_x),
-same_x = F(x), same_y = G(y)) and four discriminator ones (D_y on y and
-fake_y, D_x on x and fake_x). Each network takes its own gradient of its own
-total, which gives the reference's four tapes: the cycle loss sits in both
-generator totals; the adversarial loss reaches a generator through a
-discriminator whose parameters take no gradient from it; and a
-discriminator's gradient stops at the fake, as if it were detached. So one
-D(fake) serves both the adversarial and the discriminator loss.
+**The step** (gan_tpu_torch/train/base.py). gan_tpu takes one gradient of
+one combined scalar, each term with every other network's parameters
+stop-gradiented (``sg_tree``), and lets XLA merge the duplicated forwards.
+Here each forward runs once, and the networks fall into two gradient
+groups, one ``torch.autograd.grad`` each (``GRADIENT_GROUPS``):
+
+- the generators: adv_g + adv_f + total_cycle + id_g + id_f with respect
+  to both generators' parameters;
+- the discriminators: disc_x + disc_y with respect to both discriminators'.
+
+This equals the reference's one tape per network (cycle_gan.py:244-262).
+adv_f and id_f do not depend on G, and adv_g and id_g do not depend on F;
+total_cycle appears once in the sum, and each generator's own total holds it
+once; so each generator takes the gradient of its own total. The two
+discriminators' parameters are disjoint. The adversarial loss reaches a
+generator through a discriminator whose parameters the generators' walk
+does not collect, and the discriminators' walk stops at their inputs, as if
+the fakes were detached; so one D(fake) serves both the adversarial and the
+discriminator loss.
+
+**The forward** takes gan_tpu's two structures, switched on the wider
+domain's batch as gan_tpu switches them. Where it is at most
+``BATCHED_PASS_MAX`` rows, the six generator applications run as three
+batched U-Net passes, G(cat[x, y]), F(cat[fake_y, y, x]) and G(fake_x)
+(``BATCHED_PASSES``), and each discriminator's real and fake batches as one
+pass, D_x(cat[x, fake_x]) and D_y(cat[y, fake_y]). Above it they run as ten
+forwards (``UNBATCHED_PASSES``, then D on each real and each fake batch).
+Both are exact because every norm is instance norm, per sample, and each
+dropout mask is drawn per sample; a pass's output is split by its inputs'
+widths, which differ at the zip tail. gan_tpu switches at 16 rows, its v5e
+crossover. The H100's crossover lies at a number of pixels
+(``batched_pass_max``): the batched form's graph step was the faster up to
+4 256²-images per domain (256² batch 1, 2 and 4; 512² batch 1) and the
+slower from 8 on (256² batch 8, 16 and 32; 512² batch 2 and 4), where its
+concatenated passes take the 1-channel stems' input gradient over rows that
+need none (chip_smoke.py ``form_sweep``; PERF.md).
 
 **Draws.** Dropout masks and jitter offsets come from ``torch.Generator``s
-seeded as a pure function of (seed + 1, epoch, train or val, step,
-application), so a re-run repeats its draws, as ``loop.epoch_rng`` does for
-the shuffles.
+seeded as a pure function of (seed + 1, epoch, train or val, step, index),
+so a re-run repeats its draws, as ``loop.epoch_rng`` does for the shuffles.
+The index of a dropout generator is its generator pass's, one per pass as
+gan_tpu draws one key per pass (three in the batched form, six in the
+unbatched one); the jitter's indices lie past every pass's.
 
 **Epochs.** Both domains' uint8 train and val caches live whole on the
 device when they fit, or stream from the host (``--device-cache off``, or
@@ -60,13 +86,38 @@ from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import Throughput
 
 NETWORKS = ("gen_g", "gen_f", "disc_x", "disc_y")
-GENERATOR_APPLICATIONS = 6   # generator forwards per step, one dropout generator each
-# the generator each application runs, in the order of _losses
-APPLICATION_NETS = ("gen_g", "gen_f", "gen_f", "gen_g", "gen_f", "gen_g")
-_JITTER_X, _JITTER_Y = GENERATOR_APPLICATIONS, GENERATOR_APPLICATIONS + 1   # draw indices
+GRADIENT_GROUPS = (("gen_g", "gen_f"), ("disc_x", "disc_y"))
+# gan_tpu's two structures of the six generator applications, as passes in
+# call order: (generator, the batches it takes concatenated, its outputs)
+BATCHED_PASSES = (("gen_g", ("x", "y"), ("fake_y", "same_y")),
+                  ("gen_f", ("fake_y", "y", "x"), ("cycled_x", "fake_x", "same_x")),
+                  ("gen_g", ("fake_x",), ("cycled_y",)))
+UNBATCHED_PASSES = (("gen_g", ("x",), ("fake_y",)), ("gen_f", ("fake_y",), ("cycled_x",)),
+                    ("gen_f", ("y",), ("fake_x",)), ("gen_g", ("fake_x",), ("cycled_y",)),
+                    ("gen_f", ("x",), ("same_x",)), ("gen_g", ("y",), ("same_y",)))
+_DOMAIN = {"x": "x", "fake_y": "x", "y": "y", "fake_x": "y"}   # whose rows a pass input has
+_JITTER_X, _JITTER_Y = len(UNBATCHED_PASSES), len(UNBATCHED_PASSES) + 1   # past every pass's
+# the most 256²-image equivalents per domain at which the batched form's
+# step was the faster on the H100 (the module docstring)
+BATCHED_EQUIVALENTS_MAX = 4
+
+
+def batched_pass_max(img_size: int) -> int:
+    """The most rows per domain at which a step at ``img_size`` runs the
+    batched form on the card: 4 at 256², 1 at 512²."""
+    return int(BATCHED_EQUIVALENTS_MAX * (256 / img_size) ** 2)
+
+
+def pass_widths(passes: tuple, bx: int, by: int) -> list[int]:
+    """The batch of each pass of ``passes`` in a step of bx X and by Y rows."""
+    rows = {"x": bx, "y": by}
+    return [sum(rows[_DOMAIN[i]] for i in inputs) for _net, inputs, _outputs in passes]
 
 
 class CycleGANTrainer(GANTrainer):
+    # rows; None: the card's crossover at the image size (``batched_pass_max``)
+    BATCHED_PASS_MAX: Optional[int] = None
+
     def __init__(self, config: CycleGANConfig):
         c = config.n_channels
         init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
@@ -77,49 +128,60 @@ class CycleGANTrainer(GANTrainer):
         self.disc_x = PatchGANDiscriminator(c, norm="instance", generator=init)
         self.disc_y = PatchGANDiscriminator(c, norm="instance", generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
-                         sampler="gen_g")
+                         GRADIENT_GROUPS, sampler="gen_g")
 
     # ------------------------------------------------------------------ step
+    def passes(self, bx: int, by: int) -> tuple:
+        """The generator passes of a step of bx X and by Y rows: gan_tpu's
+        batched form up to ``BATCHED_PASS_MAX`` rows in the wider domain,
+        else the unbatched one."""
+        limit = self.BATCHED_PASS_MAX
+        if limit is None:
+            limit = batched_pass_max(self.config.img_size)
+        return BATCHED_PASSES if max(bx, by) <= limit else UNBATCHED_PASSES
+
     def _losses(self, x, y, generators: Optional[Sequence[torch.Generator]], masks=None):
-        """({network: its total loss}, the 7 losses in CYCLEGAN_LOSS_KEYS order).
-        ``generators``: one dropout generator per generator application, in
-        the order below (APPLICATION_NETS), or ``masks``: each application's
-        keep-masks; with neither dropout is off."""
+        """((the generators' objective, the discriminators'), the 7 losses in
+        CYCLEGAN_LOSS_KEYS order). ``generators``: one dropout generator per
+        generator pass of ``passes``, in its order, or ``masks``: each
+        pass's keep-masks; with neither dropout is off."""
         dt = self.dtype
         lam = float(self.config.lam)
-        k = list(generators) if generators is not None else [None] * GENERATOR_APPLICATIONS
-        m = list(masks) if masks is not None else [None] * GENERATOR_APPLICATIONS
+        passes = self.passes(x.shape[0], y.shape[0])
+        k = list(generators) if generators is not None else [None] * len(passes)
+        m = list(masks) if masks is not None else [None] * len(passes)
+        img = {"x": x, "y": y}
+        for i, (net, inputs, outputs) in enumerate(passes):
+            parts = [img[name] for name in inputs]
+            out = self.nets[net](torch.cat(parts) if len(parts) > 1 else parts[0],
+                                 generator=k[i], masks=m[i], compute_dtype=dt)
+            img.update(zip(outputs, out.split([p.shape[0] for p in parts])
+                           if len(parts) > 1 else (out,)))
 
-        def gen(net, img, app):
-            return net(img, generator=k[app], masks=m[app], compute_dtype=dt)
+        def disc(net, real, fake):
+            if passes is BATCHED_PASSES:   # real and fake as one pass
+                out = net(torch.cat([real, fake]), compute_dtype=dt)
+                return out.split([real.shape[0], fake.shape[0]])
+            return net(real, compute_dtype=dt), net(fake, compute_dtype=dt)
 
-        fake_y = gen(self.gen_g, x, 0)
-        cycled_x = gen(self.gen_f, fake_y, 1)
-        fake_x = gen(self.gen_f, y, 2)
-        cycled_y = gen(self.gen_g, fake_x, 3)
-        same_x = gen(self.gen_f, x, 4)
-        same_y = gen(self.gen_g, y, 5)
-        dx_real = self.disc_x(x, compute_dtype=dt)
-        dx_fake = self.disc_x(fake_x, compute_dtype=dt)
-        dy_real = self.disc_y(y, compute_dtype=dt)
-        dy_fake = self.disc_y(fake_y, compute_dtype=dt)
-
+        dx_real, dx_fake = disc(self.disc_x, x, img["fake_x"])
+        dy_real, dy_fake = disc(self.disc_y, y, img["fake_y"])
         adv_g = generator_adversarial_loss(dy_fake)
         adv_f = generator_adversarial_loss(dx_fake)
-        total_cycle = cycle_loss(x, cycled_x, lam) + cycle_loss(y, cycled_y, lam)
-        total_g = adv_g + total_cycle + identity_loss(y, same_y, lam)
-        total_f = adv_f + total_cycle + identity_loss(x, same_x, lam)
+        total_cycle = cycle_loss(x, img["cycled_x"], lam) + cycle_loss(y, img["cycled_y"], lam)
+        id_g = identity_loss(y, img["same_y"], lam)
+        id_f = identity_loss(x, img["same_x"], lam)
         disc_x = discriminator_loss(dx_real, dx_fake, 0.5)
         disc_y = discriminator_loss(dy_real, dy_fake, 0.5)
-        totals = {"gen_g": total_g, "gen_f": total_f, "disc_x": disc_x, "disc_y": disc_y}
-        losses = torch.stack([adv_g, adv_f, total_cycle, total_g, total_f, disc_x, disc_y])
-        return totals, losses
+        losses = torch.stack([adv_g, adv_f, total_cycle, adv_g + total_cycle + id_g,
+                              adv_f + total_cycle + id_f, disc_x, disc_y])
+        return (adv_g + adv_f + total_cycle + id_g + id_f, disc_x + disc_y), losses
 
     def _step(self, u8x, u8y, epoch: int, stream: int, step: int) -> torch.Tensor:
         """Draws, jitter (train) or normalize (val), then a train or eval step."""
         seed = self.config.seed + 1
-        gens = [self._draws(seed, epoch, stream, step, app)
-                for app in range(GENERATOR_APPLICATIONS)]
+        gens = [self._draws(seed, epoch, stream, step, k)
+                for k in range(len(self.passes(u8x.shape[0], u8y.shape[0])))]
         if stream == 0:
             size = self.config.img_size
             x = single_jitter_batch(u8x, self._draws(seed, epoch, stream, step, _JITTER_X),
@@ -132,8 +194,9 @@ class CycleGANTrainer(GANTrainer):
 
     def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
         seed, b, size = self.config.seed + 1, self.config.batch_size, self.config.img_size
-        masks = [self._masks(self.nets[net], self._draws(seed, epoch, stream, step, app), b)
-                 for app, net in enumerate(APPLICATION_NETS)]
+        passes = self.passes(b, b)
+        masks = [self._masks(self.nets[net], self._draws(seed, epoch, stream, step, k), width)
+                 for k, ((net, _, _), width) in enumerate(zip(passes, pass_widths(passes, b, b)))]
         if stream != 0:
             return StepDraws(masks, [])
         jitter = [jitter_draws(b, size + JITTER_PAD, size,

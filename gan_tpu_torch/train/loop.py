@@ -124,6 +124,13 @@ class CachedEpoch:
             losses = self.step_fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.counts["eager"] += 1
+        # the warm-up's freed blocks stay cached in the default pool, and the
+        # allocator may not free them while a capture is under way: where they
+        # outgrow what is left on the card (a step of more than half of it),
+        # the capture would run out of memory, so they are freed first
+        cached = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        if cached > torch.cuda.mem_get_info(self.device)[0]:
+            torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # no garbage collection inside the capture: a collected graph's

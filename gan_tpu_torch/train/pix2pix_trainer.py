@@ -8,10 +8,11 @@ discriminator on the real pair D(x, y) and on the fake pair D(x, fake), each
 in its own call, so each takes its own batch-norm statistics, as gan_tpu's
 separate applications do. The generator's total is adversarial + λ ·
 secondary (L1 or SSIM); the discriminator's is the BCE pair · 0.5. Each
-network takes the gradient of its own total with respect to its own
-parameters, so the one D(x, fake) serves both losses: the generator's
-gradient passes through D without touching D's parameters, and D's stops at
-the fake, which is gan_tpu's ``sg_tree`` / ``stop_gradient`` partition.
+network is a gradient group of its own, ("gen",) then ("disc",), and takes
+the gradient of its own total with respect to its own parameters, so the one
+D(x, fake) serves both losses: the generator's gradient passes through D
+without touching D's parameters, and D's stops at the fake, which is
+gan_tpu's ``sg_tree`` / ``stop_gradient`` partition.
 
 **Draws.** Per step, one dropout generator and one jitter generator, seeded
 from (seed + 1, epoch, train or val, step, index).
@@ -60,15 +61,19 @@ from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import Throughput
 
 NETWORKS = ("gen", "disc")
+GRADIENT_GROUPS = (("gen",), ("disc",))
 _DROPOUT, _JITTER = 0, 1   # draw indices within a step
 
 # Peak device memory of a remat-free graph epoch, (bytes, bytes per
-# 256²-image equivalent of the batch): least squares over chip_smoke.py phase
-# 14f's remat-free points on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-# (Pix2Pix at 512², batch 1, 4, 16, 64 and 256², batch 128: 1.70-12.92 GiB;
-# CycleGAN at 512², batch 1, 4, 16: 3.05-13.36 GiB)
-REMAT_FREE_PEAK = {"pix2pix": (1.988 * 2**30, 0.0412 * 2**30),
-                   "cyclegan": (2.361 * 2**30, 0.1719 * 2**30)}
+# 256²-image equivalent of the batch), from chip_smoke.py phase 14f's
+# remat-free points on an NVIDIA H100 80GB HBM3 at a 700 W power limit, each
+# read above what was allocated before its trainer was built (Pix2Pix at
+# 512², batch 1, 4, 16, 64 and 256², batch 128: 1.14-12.92 GiB; CycleGAN at
+# 512², batch 1, in the batched form, and 4, 16, 48, 64, 72, unbatched:
+# 2.77-52.12 GiB): the least-squares slope, with the intercept raised until
+# the line under-predicts no point as printed, to 0.01 GiB
+REMAT_FREE_PEAK = {"pix2pix": (0.965 * 2**30, 0.0467 * 2**30),
+                   "cyclegan": (2.349 * 2**30, 0.1732 * 2**30)}
 
 
 def use_remat(config, device_memory: int) -> bool:
@@ -78,13 +83,13 @@ def use_remat(config, device_memory: int) -> bool:
     ``batch_size`` × (``img_size`` / 256)² image equivalents exceeds the
     share of ``device_memory`` that the device-cache plan leaves to training
     (1 − ``DEVICE_CACHE_FRACTION``). On the H100 80GB (79.18 GiB) that is
-    past 1,104 equivalents for Pix2Pix (512², batch 277) and 263 for
-    CycleGAN (512², batch 66), beyond the largest batch measured, so the
-    line is extrapolated there. Phase 14f measured remat slower at every
-    point (10-26% a graph step) while it cut the peak by 15-33% (72% at
-    Pix2Pix's batch of 1), so ``auto`` does not copy gan_tpu's v5e rule,
-    which also turned remat on at 512² batches of 8 or less, where the v5e
-    ran faster with it."""
+    past 996 equivalents for Pix2Pix (512², batch 250), beyond the largest
+    batch measured, so the line is extrapolated there, and past 260 for
+    CycleGAN (512², batch 66), between the measured batches 64 (46.56 GiB
+    remat-free) and 72 (52.12 GiB). Phase 14f measured remat slower at every
+    point (8-15% a graph step) while it cut the peak by 7-34%, so ``auto``
+    does not copy gan_tpu's v5e rule, which also turned remat on at 512²
+    batches of 8 or less, where the v5e ran faster with it."""
     if config.remat in ("on", "off"):
         return config.remat == "on"
     fixed, per_image = REMAT_FREE_PEAK["cyclegan" if isinstance(config, CycleGANConfig)
@@ -102,13 +107,13 @@ class Pix2PixTrainer(GANTrainer):
                                  remat=use_remat(config, device_bytes(default_device())))
         self.disc = PatchGANDiscriminator(c, norm="batch", target=True, generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
-                         sampler="gen")
+                         GRADIENT_GROUPS, sampler="gen")
 
     # ------------------------------------------------------------------ step
     def _losses(self, x, y, generator: Optional[torch.Generator], masks=None):
-        """({network: its total loss}, the 4 losses in PIX2PIX_LOSS_KEYS
-        order). ``generator`` draws the dropout, or ``masks`` ([G's keep-masks])
-        gives it; with neither it is off."""
+        """((the generator's total, the discriminator's), the 4 losses in
+        PIX2PIX_LOSS_KEYS order). ``generator`` draws the dropout, or
+        ``masks`` ([G's keep-masks]) gives it; with neither it is off."""
         cfg = self.config
         dt = self.dtype
         fake = self.gen(x, generator=generator, masks=None if masks is None else masks[0],
@@ -118,7 +123,7 @@ class Pix2PixTrainer(GANTrainer):
         gen_total, gen_gan, gen_sec = pix2pix_generator_loss(
             d_fake, fake, y, lam=float(cfg.lam), kind=cfg.generator_loss)
         disc = discriminator_loss(d_real, d_fake, 0.5)
-        return {"gen": gen_total, "disc": disc}, torch.stack([gen_total, gen_gan, gen_sec, disc])
+        return (gen_total, disc), torch.stack([gen_total, gen_gan, gen_sec, disc])
 
     def _step(self, u8: torch.Tensor, epoch: int, stream: int, step: int) -> torch.Tensor:
         """Draws, paired jitter (train) or normalize (val), then a train or

@@ -37,6 +37,9 @@ from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
 from gan_tpu_torch.transplant import _TO_TORCH, state_dict_to_params
 from test_torch_pix2pix import _two_pass_batch_norm
+from torch_inputs import limit_threads
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPOCH = 3   # the epoch the gan_tpu checkpoint records

@@ -28,8 +28,12 @@ from gan_tpu_torch.data import augment
 from gan_tpu_torch.models import blocks
 from gan_tpu_torch.train import base, loop
 from gan_tpu_torch.train.checkpoint import CheckpointManager
-from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.train.cyclegan_trainer import (BATCHED_PASSES, UNBATCHED_PASSES,
+                                                   CycleGANTrainer, pass_widths)
 from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
+from torch_inputs import limit_threads
+
+limit_threads()
 
 TRAINERS = ["cyclegan", "pix2pix"]
 
@@ -121,36 +125,50 @@ def test_runner_epoch_equals_the_eager_loop(kind):
 @pytest.mark.parametrize("kind", TRAINERS)
 def test_static_draw_buffers_equal_the_eager_draws(monkeypatch, kind, training):
     """Step 1 of epoch 3: the dropout keep-masks (every site of every
-    generator application, in call order) and the jitter's offsets and
-    flips that the keyed generators draw inside the eager ``_step`` equal
+    generator pass, in call order: at batch 2 one Pix2Pix pass, or for
+    CycleGAN at 64², whose U-Net has a dropout site, the batched form's
+    three passes of 4, 6 and 2 rows and the unbatched form's six of 2, each
+    form forced on a trainer of its own) and the jitter's offsets and flips
+    that the keyed generators draw inside the eager ``_step`` equal
     ``_step_draws`` and what the runner's static buffers hold after it ran
     that step."""
-    trainer = _trainer(kind)
-    train, val = _caches(kind, 32, trainer.device)
-    caches = train if training else val
-    stream = 0 if training else 1
+    size = 64 if kind == "cyclegan" else 32
     seen = {"masks": [], "jitter": []}
     real_mask, real_jitter = blocks.keep_mask, augment.jitter_draws
     monkeypatch.setattr(blocks, "keep_mask", lambda *a, **kw: seen["masks"].append(
         real_mask(*a, **kw)) or seen["masks"][-1])
     monkeypatch.setattr(augment, "jitter_draws", lambda *a, **kw: seen["jitter"].append(
         real_jitter(*a, **kw)) or seen["jitter"][-1])
-    trainer._step(*(c[:2] for c in caches), 3, stream, 1)
-    n_masks = (6 if kind == "cyclegan" else 1) * trainer.sampler.n_dropout
-    assert len(seen["masks"]) == n_masks
-    assert len(seen["jitter"]) == ((2 if kind == "cyclegan" else 1) if training else 0)
-    want = seen["masks"] + [t for j in seen["jitter"] for t in j]
+    stream = 0 if training else 1
+    forms = {BATCHED_PASSES: 2, UNBATCHED_PASSES: -1} if kind == "cyclegan" else {None: None}
+    for passes, limit in forms.items():
+        trainer = _trainer(kind, size=size)
+        if kind == "cyclegan":
+            trainer.BATCHED_PASS_MAX = limit
+            assert trainer.passes(2, 2) is passes
+        train, val = _caches(kind, size, trainer.device)
+        caches = train if training else val
+        seen["masks"].clear()
+        seen["jitter"].clear()
+        trainer._step(*(c[:2] for c in caches), 3, stream, 1)
+        n_passes = len(passes) if kind == "cyclegan" else 1
+        assert len(seen["masks"]) == n_passes * trainer.sampler.n_dropout
+        assert len(seen["jitter"]) == ((2 if kind == "cyclegan" else 1) if training else 0)
+        want = seen["masks"] + [t for j in seen["jitter"] for t in j]
 
-    draws = trainer._step_draws(3, stream, 1)
-    assert [len(m) for m in draws.masks] == [trainer.sampler.n_dropout] * len(draws.masks)
-    steps = torch.tensor([[1, 0], [0, 1]])   # the rows of steps 0 and 1
-    trainer._cached_epoch(caches, tuple(steps for _ in caches), 3, training)
-    ((_, idx, buffers),) = trainer._runners.values()
-    for got in (draws.tensors(), buffers.tensors()):
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
-    assert all(torch.equal(i, steps[1]) for i in idx)
+        draws = trainer._step_draws(3, stream, 1)
+        assert [len(m) for m in draws.masks] == [trainer.sampler.n_dropout] * n_passes
+        if kind == "cyclegan":
+            assert trainer.sampler.n_dropout == 1
+            assert [m[0].shape[0] for m in draws.masks] == pass_widths(passes, 2, 2)
+        steps = torch.tensor([[1, 0], [0, 1]])   # the rows of steps 0 and 1
+        trainer._cached_epoch(caches, tuple(steps for _ in caches), 3, training)
+        ((_, idx, buffers),) = trainer._runners.values()
+        for got in (draws.tensors(), buffers.tensors()):
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+        assert all(torch.equal(i, steps[1]) for i in idx)
 
 
 def test_pix2pix_run_epoch_takes_the_partial_last_batch():
@@ -402,19 +420,27 @@ def test_graph_epoch_recaptures_after_load_state(cuda_trainers, kind):
 
 def test_chip_smoke_derives_the_graph_epoch_launches():
     """chip_smoke.py's counts of one ``fit`` epoch: the card runs every
-    step's kernels (S 130, K1 1,248 and K2 1,430 for CycleGAN at batch 8;
-    S 33 for Pix2Pix at batch 32), the host traces them only for each
-    runner's warm-up step, its capture and the tails; the rest replay."""
+    step's kernels (CycleGAN at batch 8: S 65, K1 624 and K2 594 in the
+    batched form, S 130, K1 1,248 and K2 1,122 in the unbatched form; S 33
+    for Pix2Pix at batch 32), the host traces them only for each runner's
+    warm-up step, its capture and the tails; the rest replay. Phase 7 holds
+    the unbatched form, which the card's crossover selects at 256², batch
+    8."""
     import chip_smoke as c
 
-    k1, k2 = c.train_step_launches(14, 3)
-    per = {"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": 10}
-    ran, traced, counts = c.epoch_plan_counts(per, dict(per, instance_norm_bwd=0),
-                                              divmod(84, 8), divmod(16, 8))
-    assert ran == {"instance_norm_fwd": 1248, "instance_norm_bwd": 1430, "stem_conv": 130}
-    assert traced == {"instance_norm_fwd": 96 * 5, "instance_norm_bwd": 130 * 3,
-                      "stem_conv": 10 * 5}
-    assert counts == {"eager": 2, "captures": 2, "replays": 9 + 1}
+    assert not c.cyclegan_batched(256, 8)
+    for batched, (k1, k2, stems), ran_want, traced_want in (
+            (True, (48, 54, 5), (624, 594, 65), (48 * 5, 54 * 3, 5 * 5)),
+            (False, (96, 102, 10), (1248, 1122, 130), (96 * 5, 102 * 3, 10 * 5))):
+        assert c.train_step_launches(14, 3, batched) == (k1, k2)
+        per = {"instance_norm_fwd": k1, "instance_norm_bwd": k2, "stem_conv": stems}
+        assert c.cyclegan_launches(256, batched) == (per, dict(per, instance_norm_bwd=0))
+        ran, traced, counts = c.epoch_plan_counts(per, dict(per, instance_norm_bwd=0),
+                                                  divmod(84, 8), divmod(16, 8))
+        names = ("instance_norm_fwd", "instance_norm_bwd", "stem_conv")
+        assert ran == dict(zip(names, ran_want))
+        assert traced == dict(zip(names, traced_want))
+        assert counts == {"eager": 2, "captures": 2, "replays": 9 + 1}
     per = {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 3}
     ran, traced, counts = c.epoch_plan_counts(per, per, divmod(261, 32), divmod(40, 32))
     assert ran["stem_conv"] == 33 and traced["stem_conv"] == 3 * 6

@@ -15,6 +15,9 @@ from gan_tpu_torch.config import parse_cyclegan
 from gan_tpu_torch import device
 from gan_tpu_torch.ops import kernels
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from torch_inputs import limit_threads
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,6 +15,9 @@ import torch
 
 from gan_tpu.models import inception as jax_inception
 from gan_tpu_torch.models import inception
+from torch_inputs import limit_threads
+
+limit_threads()
 
 
 @pytest.fixture(scope="module")

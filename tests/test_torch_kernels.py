@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from gan_tpu_torch.ops import conv, kernels, norm
-from torch_inputs import norm_inputs
+from torch_inputs import limit_threads, norm_inputs
+
+limit_threads()
 
 # fp32: the kernel's per-band two-pass sums merged with Chan's formula vs
 # the plain version's two-pass sums

@@ -19,6 +19,9 @@ from PIL import Image
 from gan_tpu.data import loader as jax_loader
 from gan_tpu.data import pipeline as jax_pipeline
 from gan_tpu_torch.data import loader, pipeline
+from torch_inputs import limit_threads
+
+limit_threads()
 
 SIZE = 32
 KINDS = ["pix2pix", "cyclegan"]

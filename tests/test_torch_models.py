@@ -14,6 +14,9 @@ from gan_tpu.models import PatchGANDiscriminator as JaxPatchGAN
 from gan_tpu.models import UNetGenerator as JaxUNet
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
 from gan_tpu_torch.transplant import state_dict_to_params, params_to_state_dict
+from torch_inputs import limit_threads
+
+limit_threads()
 
 
 def _pair(depth, seed=0, in_channels=1):

@@ -3,7 +3,9 @@
 that ``chip_smoke.py`` drives (the 256² generator at the predict chunk of 16
 and the training batch of 8, which is also the Pix2Pix predict chunk's per-image
 batch norm, and the PatchGAN's sites at batch 8; the 512² generator's and
-PatchGAN's sites at batch 1, 4 and 16) and at the edge shapes, in bf16 and
+PatchGAN's sites at batch 1, 4 and 16; and at both sizes every batch of the
+CycleGAN steps' passes in both forms, ``chip_smoke.cyclegan_batches``, such
+as 2B and 3B of the batched form) and at the edge shapes, in bf16 and
 fp32. Each plan's bands cover H·W once and its tiles cover C once, its
 cluster and shared memory are ones Hopper can run, and the path's large
 sites put at least 128 blocks on the card. The 512² generator's last up
@@ -16,14 +18,23 @@ import torch
 import chip_smoke
 from gan_tpu_torch.ops import kernels
 from gan_tpu_torch.train.base import generator_depth
+from torch_inputs import limit_threads
+
+limit_threads()
 
 _GEN_SITES = chip_smoke.norm_sites(chip_smoke.IMG_SIZE, generator_depth(chip_smoke.IMG_SIZE))
+# the CycleGAN steps' generator and discriminator pass batches, both forms
+_GEN_BATCHES, _DISC_BATCHES = chip_smoke.cyclegan_batches(chip_smoke.IMG_SIZE)
 PATH_CASES = sorted({(n, hw * hw, c) for hw, c in _GEN_SITES
-                     for n in (chip_smoke.BATCH, chip_smoke.TRAIN_BATCH)}
-                    | {(chip_smoke.TRAIN_BATCH, hw * hw, c) for hw, c in chip_smoke.DISC_NORM_SITES})
-_SITES_512 = (chip_smoke.norm_sites(chip_smoke.IMG_512, generator_depth(chip_smoke.IMG_512))
-              + list(chip_smoke.disc_norm_sites(chip_smoke.IMG_512)))
-CASES_512 = sorted({(n, hw * hw, c) for hw, c in _SITES_512 for n in (1, 4, 16)})
+                     for n in {chip_smoke.BATCH, chip_smoke.TRAIN_BATCH} | _GEN_BATCHES}
+                    | {(n, hw * hw, c) for hw, c in chip_smoke.DISC_NORM_SITES
+                       for n in {chip_smoke.TRAIN_BATCH} | _DISC_BATCHES})
+_GEN_512 = chip_smoke.norm_sites(chip_smoke.IMG_512, generator_depth(chip_smoke.IMG_512))
+_DISC_512 = chip_smoke.disc_norm_sites(chip_smoke.IMG_512)
+_GEN_BATCHES_512, _DISC_BATCHES_512 = chip_smoke.cyclegan_batches(chip_smoke.IMG_512)
+CASES_512 = sorted({(n, hw * hw, c) for hw, c in _GEN_512 + list(_DISC_512) for n in (1, 4, 16)}
+                   | {(n, hw * hw, c) for hw, c in _GEN_512 for n in _GEN_BATCHES_512}
+                   | {(n, hw * hw, c) for hw, c in _DISC_512 for n in _DISC_BATCHES_512})
 UNSTAGED_SITE = (256 * 256, 64)   # the 512² generator's last up block
 # H·W = 1; the (3, 3, 5, 80) test shape; one sample at the largest site; C = 3
 EDGE_CASES = [(16, 1, 512), (3, 15, 80), (1, 128 * 128, 64), (2, 64, 3), (4, 32 * 32, 3)]
@@ -31,9 +42,10 @@ DTYPES = [torch.bfloat16, torch.float32]
 
 
 def _is_large(n, hw, c):
-    """The path's sites of at least 16²×512 at batch 8: enough work for a
-    few hundred blocks."""
-    return (n, hw, c) in PATH_CASES and hw >= 16 * 16
+    """The path's sites of at least 16²×512 from batch 8 on: enough work
+    for a few hundred blocks (the forms' sweep below batch 8 has too few
+    instances for that)."""
+    return (n, hw, c) in PATH_CASES and hw >= 16 * 16 and n >= chip_smoke.TRAIN_BATCH
 
 
 def _assert_schedulable_cover(plan, n, hw, c, dtype):

@@ -20,7 +20,9 @@ from gan_tpu_torch.data.pipeline import resize_nearest_np
 from gan_tpu_torch.data.split import list_images
 from gan_tpu_torch.ops import conv, kernels, norm
 from gan_tpu_torch.transplant import _TO_TORCH
-from torch_inputs import norm_inputs
+from torch_inputs import limit_threads, norm_inputs
+
+limit_threads()
 
 # fp32 convs: both sides sum 16·C_in products in fp32 in different orders
 CONV_ATOL = 1e-5

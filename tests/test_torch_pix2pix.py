@@ -45,7 +45,9 @@ from gan_tpu_torch.models import blocks
 from gan_tpu_torch.ops import conv, kernels, norm, ssim
 from gan_tpu_torch.train.pix2pix_trainer import NETWORKS, Pix2PixTrainer
 from gan_tpu_torch.transplant import _TO_TORCH, networks_to_state_dicts, state_dict_to_params
-from torch_inputs import norm_inputs
+from torch_inputs import limit_threads, norm_inputs
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jax_ssim = importlib.import_module("gan_tpu.ops.ssim")   # the package exports a function of that name

@@ -28,6 +28,9 @@ from gan_tpu_torch.pix2pix import main as pix2pix_main
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
 from gan_tpu_torch.transplant import params_to_state_dict
+from torch_inputs import limit_threads
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_IMAGES = 5

@@ -24,6 +24,9 @@ from gan_tpu.models import inception as jax_inception
 from gan_tpu_torch import quality
 from gan_tpu_torch.models import inception
 from gan_tpu_torch.tools import eval_quality
+from torch_inputs import limit_threads
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(

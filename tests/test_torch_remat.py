@@ -41,11 +41,14 @@ from gan_tpu_torch import cycle_gan, pix2pix
 from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
 from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION
 from gan_tpu_torch.models import UNetGenerator, blocks, unet
-from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer, pass_widths
 from gan_tpu_torch.train.pix2pix_trainer import REMAT_FREE_PEAK, Pix2PixTrainer, use_remat
 from gan_tpu_torch.transplant import state_dict_to_params
 from test_torch_epoch import _write_data
 from test_torch_pix2pix import _two_pass_batch_norm
+from torch_inputs import limit_threads
+
+limit_threads()
 
 SIZE = 64
 DEPTH = 6
@@ -70,10 +73,15 @@ def _xy(seed=21, size=SIZE):
     return [rng.uniform(-1, 1, (2, size, size, 1)).astype(np.float32) for _ in range(2)]
 
 
-def _masks(kind, mask):
-    """``StepDraws.masks`` with ``mask`` at every generator application's one
-    dropout site."""
-    return [[torch.from_numpy(mask)]] * (1 if kind == "pix2pix" else 6)
+def _masks(trainer, mask):
+    """``StepDraws.masks`` of ``trainer``'s step at batch 2 with ``mask`` (2
+    rows) at every image pair's one dropout site: Pix2Pix's one generator
+    pass, or each pass of the CycleGAN form the trainer runs at batch 2 (4,
+    6 and 2 rows batched, 2 each unbatched)."""
+    if isinstance(trainer, Pix2PixTrainer):
+        return [[torch.from_numpy(mask)]]
+    return [[torch.from_numpy(np.tile(mask, (w // 2, 1, 1, 1)))]
+            for w in pass_widths(trainer.passes(2, 2), 2, 2)]
 
 
 def _assert_states_equal(a, b):
@@ -102,11 +110,11 @@ def test_remat_step_equals_the_remat_free_step(monkeypatch, kind):
     assert on.sampler.remat and not off.sampler.remat
     x, y = (torch.from_numpy(a) for a in _xy())
     mask = np.random.default_rng(22).random((2, 2, 2, 512)) < 0.5
-    got = on.gradients(x, y, masks=_masks(kind, mask))
-    forwards = 1 if kind == "pix2pix" else 6
+    got = on.gradients(x, y, masks=_masks(on, mask))
+    forwards = 1 if kind == "pix2pix" else len(on.passes(2, 2))
     assert len(calls) == forwards * (2 * DEPTH - 1)
     calls.clear()
-    want = off.gradients(x, y, masks=_masks(kind, mask))
+    want = off.gradients(x, y, masks=_masks(off, mask))
     assert not calls
     assert torch.equal(got[1], want[1])
     for name in on.nets:
@@ -123,7 +131,7 @@ def test_remat_step_recomputes_the_derived_launches(monkeypatch, kind):
     chip_smoke.py derives the launches of S, K1 and K2 on the card. At 32²
     (depth 5, no dropout block) a U-Net has 8 norms and a PatchGAN 3.
     Pix2Pix at batch 2 (batch norm: no K1) and at batch 1 (per-image batch
-    norm through K1's wrapper); CycleGAN at batch 2."""
+    norm through K1's wrapper); CycleGAN at batch 2 in both forms."""
     counts = {"stem_conv": 0, "instance_norm_fwd": 0, "instance_norm_bwd": 0}
     real_stem, real_norm = blocks.stem_conv, blocks.instance_norm
 
@@ -144,15 +152,20 @@ def test_remat_step_recomputes_the_derived_launches(monkeypatch, kind):
     trainer = (Pix2PixTrainer if kind == "pix2pix" else CycleGANTrainer)(
         _cfg(kind, "on", size=32))
     x, y = (torch.from_numpy(a) for a in _xy(size=32))
-    for b in ((2, 1) if kind == "pix2pix" else (2,)):
-        counts.update(stem_conv=0, instance_norm_fwd=0, instance_norm_bwd=0)
-        trainer.gradients(x[:b], y[:b])
-        if kind == "pix2pix":
+    if kind == "pix2pix":
+        for b in (2, 1):
+            counts.update(stem_conv=0, instance_norm_fwd=0, instance_norm_bwd=0)
+            trainer.gradients(x[:b], y[:b])
             assert counts == chip_smoke.pix2pix_launches(32, b, True, remat=True), b
-        else:
-            # a recomputed norm's output takes no gradient: count K2 at the forward's
-            assert counts == chip_smoke.cyclegan_launches(32, remat=True)[0]
-            assert chip_smoke.train_step_launches(8, 3, remat=True) == (124, 82)
+        return
+    # the batched form recomputes its 3 generator passes, the unbatched its 6
+    for limit, batched, want in ((16, True, (54, 36)), (-1, False, (108, 66))):
+        trainer.BATCHED_PASS_MAX = limit
+        counts.update(stem_conv=0, instance_norm_fwd=0, instance_norm_bwd=0)
+        trainer.gradients(x, y)
+        # a recomputed norm's output takes no gradient: count K2 at the forward's
+        assert counts == chip_smoke.cyclegan_launches(32, batched, remat=True)[0]
+        assert chip_smoke.train_step_launches(8, 3, batched, remat=True) == want
 
 
 def _jax_trainer(monkeypatch, kind, params):
@@ -184,8 +197,9 @@ def _leaves(tree):
 def test_remat_step_matches_gan_tpu_with_remat(monkeypatch, kind):
     """One full step with remat on in both packages, on transplanted weights
     and the same keep-mask at every dropout site (gan_tpu's dropout is
-    replaced by one that takes it; its batched CycleGAN passes get it per
-    2-row application): gradients against ``jax.grad`` of gan_tpu's
+    replaced by one that takes it; gan_tpu's batched CycleGAN passes at
+    batch 2, and the port's passes of the form its switch selects there,
+    take it tiled over each pass's rows): gradients against ``jax.grad`` of gan_tpu's
     combined loss, and the losses.
     Tolerances of the remat-free step tests (tests/test_torch_pix2pix.py,
     tests/test_torch_train.py), for fp32 sums in other orders: Pix2Pix
@@ -216,7 +230,7 @@ def test_remat_step_matches_gan_tpu_with_remat(monkeypatch, kind):
     want_grads, want_losses = jax.jit(jax.grad(jax_trainer._losses, has_aux=True))(
         params, jx, jy, key)
     got_grads, got_losses = trainer.gradients(torch.from_numpy(x), torch.from_numpy(y),
-                                              masks=_masks(kind, mask))
+                                              masks=_masks(trainer, mask))
     loss_tol, grad_tol = (1e-5, 1e-4) if kind == "pix2pix" else (1e-4, 1e-2)
     for name in trainer.nets:
         named = dict(zip([k for k, _ in trainer.nets[name].named_parameters()], got_grads[name]))
@@ -229,14 +243,25 @@ def test_remat_step_matches_gan_tpu_with_remat(monkeypatch, kind):
 
 # the memory torch reports on an H100 80GB HBM3 (chip_smoke.py phase 14f)
 H100_BYTES = int(79.18 * 2**30)
+# the remat-free peaks, GiB, that chip_smoke.py phase 14f measured at each
+# frontier point on an NVIDIA H100 80GB HBM3 at 700 W, above what was
+# allocated before the trainer was built
+MEASURED_PEAK_GIB = {("pix2pix", 512, 1): 1.14, ("pix2pix", 512, 4): 1.70,
+                     ("pix2pix", 512, 16): 3.95, ("pix2pix", 512, 64): 12.92,
+                     ("pix2pix", 256, 128): 6.92, ("cyclegan", 512, 1): 2.77,
+                     ("cyclegan", 512, 4): 5.12, ("cyclegan", 512, 16): 13.39,
+                     ("cyclegan", 512, 48): 35.52, ("cyclegan", 512, 64): 46.56,
+                     ("cyclegan", 512, 72): 52.12}
 
 
 @pytest.mark.parametrize("kind", TRAINERS)
 def test_use_remat_decision_table(kind):
     """``on`` and ``off`` as given, whatever the size and memory; ``auto``
     where the remat-free peak that REMAT_FREE_PEAK predicts exceeds the
-    share of the card's memory left beside the device caches. On an H100
-    80GB it stays off at every batch of 256² and 512² the frontier measured,
+    share of the card's memory left beside the device caches. The line
+    under-predicts none of the frontier's measured peaks, so on an H100
+    80GB ``auto`` is on at exactly the frontier points whose measured peak
+    exceeds that share (CycleGAN at 512², batch 72), and off at the others,
     where gan_tpu's v5e rule turned it on at 512² batches of 8 or less; it
     turns on past the predicted peak, at a larger batch on a larger card."""
     for remat in ("on", "off"):
@@ -245,11 +270,16 @@ def test_use_remat_decision_table(kind):
     auto = lambda size, batch, memory=H100_BYTES: use_remat(
         _cfg(kind, "auto", size=size, batch=batch), memory)
     frontier = [(size, batch) for k, size, batch in chip_smoke.FRONTIER if k == kind]
-    assert frontier and not any(auto(size, batch) for size, batch in frontier)
-    for batch in (1, 2, 4, 8):   # the v5e rule's "on" at 512²
-        assert not auto(512, batch)
+    assert sorted(frontier) == sorted((s, b) for k, s, b in MEASURED_PEAK_GIB if k == kind)
     fixed, per_image = REMAT_FREE_PEAK[kind]
     budget = (1 - DEVICE_CACHE_FRACTION) * H100_BYTES
+    for size, batch in frontier:
+        peak = MEASURED_PEAK_GIB[kind, size, batch] * GIB
+        assert fixed + per_image * batch * (size / 256) ** 2 >= peak, (size, batch)
+        assert auto(size, batch) == (peak > budget), (size, batch)
+    assert any(auto(s, b) for s, b in frontier) == (kind == "cyclegan")
+    for batch in (1, 2, 4, 8):   # the v5e rule's "on" at 512²
+        assert not auto(512, batch)
     first_on = math.floor((budget - fixed) / per_image / 4) + 1   # 512² batch, 4 equivalents each
     assert not auto(512, first_on - 1) and auto(512, first_on)
     assert auto(256, 4 * first_on) and not auto(256, 4 * (first_on - 1))

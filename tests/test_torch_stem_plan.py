@@ -24,6 +24,9 @@ import torch
 
 import chip_smoke
 from gan_tpu_torch.ops import conv, kernels
+from torch_inputs import limit_threads
+
+limit_threads()
 
 DTYPES = [torch.bfloat16, torch.float32]
 SMALL_SHAPES = [(2, 8, 8), (1, 6, 10), (3, 4, 14)]

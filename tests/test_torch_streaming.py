@@ -32,6 +32,9 @@ from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.utils import figs
 from test_torch_epoch import (TRAINERS, _assert_same_state, _cli,
                               _trainer, _write_data, cuda_trainers)  # noqa: F401 (a fixture)
+from torch_inputs import limit_threads
+
+limit_threads()
 
 SIZE = 32
 # PNGs per set at batch 2: CycleGAN 3 X and 5 Y train rows and 3 + 4 val rows

@@ -42,10 +42,14 @@ from gan_tpu_torch.models.blocks import InstanceNorm
 from gan_tpu_torch.ops import kernels, loss_ops, norm
 from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.checkpoint import CheckpointManager
-from gan_tpu_torch.train.cyclegan_trainer import NETWORKS, CycleGANTrainer
+from gan_tpu_torch.train.cyclegan_trainer import (BATCHED_PASSES, GRADIENT_GROUPS, NETWORKS,
+                                                   UNBATCHED_PASSES, CycleGANTrainer,
+                                                   batched_pass_max, pass_widths)
 from gan_tpu_torch.train.optim import adam
 from gan_tpu_torch.transplant import params_to_state_dict, state_dict_to_params
-from torch_inputs import norm_inputs
+from torch_inputs import limit_threads, norm_inputs
+
+limit_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -249,62 +253,64 @@ def test_epoch_perm_matches_gan_tpu(buffer_size):
         assert loop.epoch_plan(m, b) == jax_loop.epoch_plan(m, b, 1)[::2]
 
 
-def _cfg(*extra):
+def _cfg(*extra, size=32):
     return parse_cyclegan(["--input-images", "x", "--target-images", "y", "--output", "o",
-                           "--train", "--epochs", "1", "--img-size", "32", "--batch-size", "2",
-                           "--dtype", "fp32", *extra])
+                           "--train", "--epochs", "1", "--img-size", str(size), "--batch-size",
+                           "2", "--dtype", "fp32", *extra])
 
 
-def _xy(seed, n=2, size=32):
+def _xy(seed, n=2, size=32, m=None):
     rng = np.random.default_rng(seed)
-    return [rng.uniform(-1, 1, (n, size, size, 1)).astype(np.float32) for _ in range(2)]
+    return [rng.uniform(-1, 1, (k, size, size, 1)).astype(np.float32) for k in (n, m or n)]
 
 
 def _leaves(tree):
     return [np.asarray(a) for _, a in jax.tree_util.tree_leaves_with_path(tree)]
 
 
-def test_cyclegan_train_steps_match_gan_tpu(monkeypatch):
-    """Three full steps (2 generators, 2 discriminators, 4 Adams) against
-    gan_tpu's fused, stop-gradient-partitioned ``_train_step`` on
-    transplanted weights, fp32, dropout off; before each, the four networks'
-    gradients against ``jax.grad`` of gan_tpu's combined loss. Each step
-    starts from gan_tpu's parameters after the last one; the two Adams carry
-    their own moments through all three.
+@pytest.fixture(scope="module")
+def jax_cyclegan():
+    """gan_tpu's CycleGAN trainer at an image size (fp32, batch 2, one
+    device), built once per size: (trainer, its initial parameters with
+    seeded non-zero norm offsets, as a trained model has)."""
+    built = {}
 
-    Tolerances, for fp32 sums taken in other orders through 6 U-Nets and 4
-    PatchGANs: losses rtol 1e-4 (seen 1e-6). Gradients: relative L2 error
-    1e-2 per network (seen 4e-6 at the first two steps; 3e-3 at the third,
-    where a LeakyReLU input within fp32 noise of 0 takes the other slope in
-    one package, which a float64 run showed to be the only difference).
-    Parameters: atol 1e-5 (seen 1e-6) wherever every gradient so far agreed
-    within 2% of itself; elsewhere Adam's lr·g/(|g| + 1e-7) turns gradient
-    noise into up to a sign flip, so 2·lr (up to 5% of a generator's
-    elements at the third step; at the first, 3 elements moved 2.1e-4)."""
-    monkeypatch.setattr(jax_blocks, "DROP_RATE", 0.0)
-    jcfg = jax_config.CycleGANConfig(input_images="", target_images="", output="", img_size=32,
-                                     batch_size=2, train=True, epochs=1, dtype="fp32",
-                                     num_devices=1, lam=10)
-    jcfg.validate()
-    jax_trainer = JaxTrainer(jcfg, mesh=make_mesh(1))
-    rng = np.random.default_rng(12)
-    params = jax.tree_util.tree_map_with_path(   # non-zero norm offsets, as a trained model has
-        lambda path, a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-        if path[-1].key == "offset" else np.asarray(a), jax.device_get(jax_trainer.params))
+    def get(size):
+        if size not in built:
+            jcfg = jax_config.CycleGANConfig(input_images="", target_images="", output="",
+                                             img_size=size, batch_size=2, train=True, epochs=1,
+                                             dtype="fp32", num_devices=1, lam=10)
+            jcfg.validate()
+            trainer = JaxTrainer(jcfg, mesh=make_mesh(1))
+            rng = np.random.default_rng(12)
+            params = jax.tree_util.tree_map_with_path(
+                lambda path, a: (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+                if path[-1].key == "offset" else np.asarray(a), jax.device_get(trainer.params))
+            built[size] = trainer, params
+        return built[size]
+
+    return get
+
+
+def _assert_steps_match(trainer, jax_trainer, params, x, y, steps, masks=None):
+    """``steps`` full steps of the port's ``trainer`` against gan_tpu's
+    ``_train_step`` from gan_tpu's ``params``, with the port's dropout
+    ``masks`` (gan_tpu's dropout replaced to take them, or off); before
+    each, the four networks' gradients against ``jax.grad`` of gan_tpu's
+    combined loss. Each step starts from gan_tpu's parameters after the last
+    one; the Adams carry their own moments through all steps. Tolerances as
+    ``test_cyclegan_train_steps_match_gan_tpu`` states them."""
     opt_states = {k: jax_trainer.tx.init(params[k]) for k in params}
-
-    trainer = CycleGANTrainer(_cfg())
     trainer.load_state({"params": {k: params_to_state_dict(params[k]) for k in NETWORKS}})
-    x, y = _xy(13)
-    key = jax.random.PRNGKey(0)   # feeds only zero-rate dropout
+    key = jax.random.PRNGKey(0)   # feeds only zero-rate or replaced dropout
     jx, jy, tx, ty = jnp.asarray(x), jnp.asarray(y), torch.from_numpy(x), torch.from_numpy(y)
     step = jax.jit(lambda p, o: (jax.grad(jax_trainer._losses, has_aux=True)(p, jx, jy, key)[0],
                                  jax_trainer._train_step(p, o, (jx, jy), key)))
-    lr = jcfg.learning_rate
+    lr = jax_trainer.config.learning_rate
     agreed = {name: [np.ones(a.shape, bool) for a in _leaves(params[name])] for name in NETWORKS}
-    for s in range(3):
+    for s in range(steps):
         want_grads, (params, opt_states, want_losses) = step(params, opt_states)
-        got_grads, got_losses = trainer.gradients(tx, ty)
+        got_grads, got_losses = trainer.gradients(tx, ty, masks=masks)
         for name in NETWORKS:
             named = dict(zip([k for k, _ in trainer.nets[name].named_parameters()],
                              got_grads[name]))
@@ -326,10 +332,96 @@ def test_cyclegan_train_steps_match_gan_tpu(monkeypatch):
         trainer.load_state({"params": {k: params_to_state_dict(params[k]) for k in NETWORKS}})
 
 
-def test_step_runs_the_derived_norm_counts():
+def test_cyclegan_train_steps_match_gan_tpu(monkeypatch, jax_cyclegan):
+    """Three full steps (2 generators, 2 discriminators, 4 Adams) at batch 2,
+    both packages in gan_tpu's batched form (three U-Net and two PatchGAN
+    passes), against gan_tpu's fused, stop-gradient-partitioned
+    ``_train_step`` on transplanted weights, fp32, dropout off; before each,
+    the four networks' gradients against ``jax.grad`` of gan_tpu's combined
+    loss. Each step starts from gan_tpu's parameters after the last one; the
+    two Adams carry their own moments through all three.
+
+    Tolerances, for fp32 sums taken in other orders through 6 U-Nets and 4
+    PatchGANs: losses rtol 1e-4 (seen 1e-6). Gradients: relative L2 error
+    1e-2 per network (seen 4e-6 at the first two steps; 3e-3 at the third,
+    where a LeakyReLU input within fp32 noise of 0 takes the other slope in
+    one package, which a float64 run showed to be the only difference).
+    Parameters: atol 1e-5 (seen 1e-6) wherever every gradient so far agreed
+    within 2% of itself; elsewhere Adam's lr·g/(|g| + 1e-7) turns gradient
+    noise into up to a sign flip, so 2·lr (up to 5% of a generator's
+    elements at the third step; at the first, 3 elements moved 2.1e-4)."""
+    monkeypatch.setattr(jax_blocks, "DROP_RATE", 0.0)
+    jax_trainer, params = jax_cyclegan(32)
+    trainer = CycleGANTrainer(_cfg())
+    trainer.BATCHED_PASS_MAX = jax_trainer.BATCHED_PASS_MAX   # gan_tpu's 16
+    assert trainer.passes(2, 2) is BATCHED_PASSES
+    _assert_steps_match(trainer, jax_trainer, params, *_xy(13), steps=3)
+
+
+# case -> (image size, X rows, Y rows, BATCHED_PASS_MAX of both trainers, dropout)
+_FORM_CASES = {"unbatched": (32, 2, 2, -1, False),
+               "zip_tail": (32, 1, 2, 16, False),
+               "batched_dropout": (64, 2, 2, 16, True),
+               "unbatched_dropout": (64, 2, 2, -1, True)}
+# the generator pass that each of gan_tpu's U-Net applications runs in its
+# trace of ``_losses`` (the generator-g view, then the generator-f view), as
+# indices of the port's passes
+_GAN_TPU_PASS_ORDER = {BATCHED_PASSES: (0, 1, 2, 0, 1, 2),
+                       UNBATCHED_PASSES: (0, 1, 2, 3, 5, 0, 1, 2, 3, 4)}
+
+
+@pytest.mark.parametrize("case", _FORM_CASES)
+def test_cyclegan_step_forms_match_gan_tpu(monkeypatch, jax_cyclegan, case):
+    """One full step in each of gan_tpu's forward structures against
+    gan_tpu's in the same structure (``BATCHED_PASS_MAX`` set on both
+    trainers): the unbatched form's ten forwards (``_losses_unbatched``),
+    the batched form at a zip tail of 1 X and 2 Y rows (passes of 3, 4 and 2
+    rows, PatchGAN passes of 3), and both forms with dropout on at 64²
+    (depth 6, one dropout site), each pass's keep-masks drawn from a seed and
+    fed to gan_tpu's dropout in its call order. Losses, gradients and the
+    updated parameters at the tolerances of
+    ``test_cyclegan_train_steps_match_gan_tpu``."""
+    size, bx, by, limit, drop = _FORM_CASES[case]
+    jax_trainer, params = jax_cyclegan(size)
+    monkeypatch.setattr(jax_trainer, "BATCHED_PASS_MAX", limit)
+    trainer = CycleGANTrainer(_cfg(size=size))
+    trainer.BATCHED_PASS_MAX = limit
+    passes = trainer.passes(bx, by)
+    assert passes is (BATCHED_PASSES if limit > 0 else UNBATCHED_PASSES)
+    masks = None
+    if drop:
+        rng = np.random.default_rng(31)
+        np_masks = [[rng.random(shape) < 0.5 for shape in trainer.gen_g.dropout_shapes(w, size)]
+                    for w in pass_widths(passes, bx, by)]
+        assert all(len(m) == 1 for m in np_masks)
+        masks = [[torch.from_numpy(m) for m in sites] for sites in np_masks]
+        order = _GAN_TPU_PASS_ORDER[passes]
+        calls = []
+
+        def injected_dropout(h, rate, rng_key):
+            (mask,) = np_masks[order[len(calls) % len(order)]]
+            calls.append(h.shape)
+            assert mask.shape == h.shape
+            return jnp.where(mask, h / jnp.asarray(1.0 - rate, h.dtype), jnp.zeros((), h.dtype))
+
+        monkeypatch.setattr(jax_blocks, "dropout", injected_dropout)
+    else:
+        monkeypatch.setattr(jax_blocks, "DROP_RATE", 0.0)
+    _assert_steps_match(trainer, jax_trainer, params, *_xy(32, bx, size, by), steps=1,
+                        masks=masks)
+    if drop:   # two traces of _losses (its gradient, then the train step), each in order
+        assert len(calls) == 2 * len(_GAN_TPU_PASS_ORDER[passes])
+
+
+def test_step_runs_the_derived_norm_counts(monkeypatch):
     """Every instance norm forward of a step, and every backward through one,
-    as chip_smoke.train_step_launches derives them (there K1 and K2 launches):
-    at depth 5 a U-Net has 8 norms and a PatchGAN 3."""
+    as chip_smoke.train_step_launches derives them (there K1 and K2
+    launches), in both forms: at depth 5 a U-Net has 8 norms and a PatchGAN
+    3. Also per step: one ``autograd.grad`` per gradient group (2), and the
+    networks' forwards: 3 U-Net and 2 PatchGAN passes in the batched form
+    (batch 2), 6 and 4 in the unbatched one. Then the switch: rows of the
+    wider domain against ``BATCHED_PASS_MAX``, by default the card's
+    crossover at the image size (``batched_pass_max``)."""
     trainer = CycleGANTrainer(_cfg())
     counts = {"fwd": 0, "bwd": 0}
 
@@ -342,12 +434,61 @@ def test_step_runs_the_derived_norm_counts():
         for m in net.modules():
             if isinstance(m, InstanceNorm):
                 m.register_forward_hook(on_forward)
-    x, y = _xy(14)
-    trainer.gradients(torch.from_numpy(x), torch.from_numpy(y))
-    assert (counts["fwd"], counts["bwd"]) == chip_smoke.train_step_launches(8, 3) == (60, 82)
-    counts.update(fwd=0, bwd=0)
-    trainer.eval_step(torch.from_numpy(x), torch.from_numpy(y))
-    assert counts == {"fwd": 60, "bwd": 0}
+    forwards = {name: 0 for name in NETWORKS}
+    for name, net in trainer.nets.items():
+        net.register_forward_pre_hook(lambda m, a, name=name: forwards.__setitem__(
+            name, forwards[name] + 1))
+    grads = []
+    real_grad = torch.autograd.grad
+    monkeypatch.setattr(torch.autograd, "grad", lambda *a, **kw: grads.append(1) or real_grad(
+        *a, **kw))
+    x, y = (torch.from_numpy(a) for a in _xy(14))
+    for limit, batched, want, nets in ((16, True, (30, 36), (2, 1, 1, 1)),
+                                       (-1, False, (60, 66), (3, 3, 2, 2))):
+        trainer.BATCHED_PASS_MAX = limit
+        counts.update(fwd=0, bwd=0)
+        forwards.update(dict.fromkeys(NETWORKS, 0))
+        grads.clear()
+        trainer.gradients(x, y)
+        assert (counts["fwd"], counts["bwd"]) == chip_smoke.train_step_launches(8, 3, batched) \
+            == want
+        assert len(grads) == len(GRADIENT_GROUPS) == 2
+        assert tuple(forwards[n] for n in NETWORKS) == nets
+        counts.update(fwd=0, bwd=0)
+        trainer.eval_step(x, y)
+        assert counts == {"fwd": want[0], "bwd": 0}
+        assert chip_smoke.cyclegan_launches(32, batched)[1]["instance_norm_fwd"] == want[0]
+    trainer.BATCHED_PASS_MAX = 16   # the switch holds the wider domain's rows against it
+    assert trainer.passes(16, 3) is BATCHED_PASSES and trainer.passes(4, 17) is UNBATCHED_PASSES
+    # by default at the card's crossover, 4 256²-images per domain: 256 rows at 32²
+    del trainer.BATCHED_PASS_MAX
+    assert [batched_pass_max(s) for s in (256, 512, 32)] == [4, 1, 256]
+    assert trainer.passes(256, 2) is BATCHED_PASSES and trainer.passes(2, 257) is UNBATCHED_PASSES
+    assert [chip_smoke.cyclegan_batched(s, b) for s, b in ((256, 4), (256, 8), (512, 1),
+                                                            (512, 2))] == [True, False, True, False]
+
+
+def test_batched_form_equals_unbatched_form_on_the_cpu():
+    """chip_smoke.py's gate between the two forms (``check_forms``) on the
+    CPU at 64² (depth 6, a dropout site), batch 2: the batched form's
+    step against the unbatched form's with its per-pass masks cut per
+    application, fp32 and bf16, within STEP_TOL."""
+    trainers = [CycleGANTrainer(_cfg(*(["--dtype", dt] if dt else []), size=64))
+                for dt in ("bf16", None)]
+    for t in trainers:
+        chip_smoke.offsets_from_seed(t)
+    x, y = (torch.from_numpy(a).to(torch.bfloat16) for a in _xy(33, size=64))
+    trainers[1].BATCHED_PASS_MAX = 2
+    masks = trainers[1]._step_draws(0, 0, 0).masks   # the batched form's, as check_forms draws
+    del trainers[1].BATCHED_PASS_MAX
+    cut = chip_smoke.unbatched_masks(masks, 2, 2)
+    assert [len(m) for m in masks] == [1, 1, 1] and [m[0].shape[0] for m in masks] == [4, 6, 2]
+    assert [len(m) for m in cut] == [1] * 6 and all(m[0].shape[0] == 2 for m in cut)
+    # fake_y, cycled_x, fake_x, cycled_y, same_x, same_y: the rows of the passes they came from
+    want = [masks[0][0][:2], masks[1][0][:2], masks[1][0][2:4], masks[2][0], masks[1][0][4:],
+            masks[0][0][2:]]
+    assert all(torch.equal(c[0], w) for c, w in zip(cut, want))
+    chip_smoke.check_forms(*trainers, x, y)
 
 
 def test_training_state_round_trip(tmp_path):

@@ -1,7 +1,20 @@
-"""Seeded numpy inputs shared by the port's tests. Imports no jax, so the
-card-side kernel tests can use it where jax is absent."""
+"""Seeded numpy inputs and the thread budget shared by the port's tests.
+Imports no jax, so the card-side kernel tests can use it where jax is
+absent."""
+
+import os
 
 import numpy as np
+import torch
+
+
+def limit_threads() -> None:
+    """Under pytest-xdist, torch's intra-op threads of one worker: the
+    process's cores shared among the workers (at least 1), where torch
+    would give every worker all of them and oversubscribe the cores."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // int(workers)))
 
 
 def norm_inputs(shape, seed=3):
