@@ -7,7 +7,9 @@ Phases, each printed; any failure raises and the script exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name; TF32
    off for the fp32 comparisons;
-2. build the CUDA kernels from ``gan_tpu_torch/csrc`` with nvcc (sm_90a);
+2. build the CUDA kernels from ``gan_tpu_torch/csrc`` with nvcc (sm_90a),
+   and the native PNG decoder (``gan_tpu_torch/data/native/decoder.cpp``)
+   with g++ over zlib;
 3. the instance-norm forward kernel (K1) against its plain PyTorch version
    at every norm site of the 256² generator at batch 16, in fp32 and bf16,
    for each activation epilogue and with batch norm's epsilon (Pix2Pix's
@@ -108,23 +110,37 @@ Phases, each printed; any failure raises and the script exits non-zero:
     5's seeded weights, on PNGs of seeded uniform noise written into a
     temporary directory (noise does not compress, the worst case for PNG
     decode): 261 Pix2Pix pairs of 512x256 and 84 X and 88 Y CycleGAN images
-    of 256² (phase 10's and phase 7's counts). 13a: the FileCache's decode
-    rate at its 16 workers for both kinds of sample (its rows held equal to
-    ``build_*_cache``'s) and the wait for an epoch's first batch, beside
-    ``os.cpu_count()``; 13b: one Pix2Pix ``fit`` epoch at batch 32 from
-    FileCaches (``--host-cache off``'s path; val: the first 40 pairs)
-    against the resident epochs from the same state: losses, parameters,
-    buffers and Adam's state bit for bit, S launches counted on the card
-    against 3 per step and the runner's steps against the derivation; then
-    train epochs resident, streamed from host memory (``--device-cache
-    off``'s path) and from the files, each streamed path also without its
-    prefetch thread, in ``STREAM_ROUNDS`` rounds of turns: pairs/s with
-    every reading, device time per step and idle share; 13c: the same for CycleGAN at batch 8 from two FileCaches (K1, K2
-    and S launches); 13d: ``predict`` of both models over 64 PNGs from a
-    FileCache against ``predict`` over the decoded array: outputs and raw
-    PNG bytes equal, S and K1 launches per generator pass, images/s with
-    the raw PNGs written. The card's machine has no matplotlib, so 13d
-    draws no grids (``save_image_grid`` is stubbed);
+    of 256² (phase 10's and phase 7's counts), and as many again at the
+    size of the reference corpus's files (``REF_PAIR``: pairs of 1280x512,
+    ``REF_SINGLE``: singles of 640x512), decoded by the native PNG decoder
+    (``gan_tpu_torch/data/native``, built in phase 2), the default. 13a,
+    for pairs and for single images at both sizes: the gate, the native
+    rows of every file equal to the PIL twin's bit for bit (train and val
+    forms); then native files/s at 1 thread, all cores less one and all
+    cores, the PIL twin's at 1 worker and at the FileCache's 16,
+    single-threaded ms per file (over the first 64 files) of PIL's decode
+    alone, of the numpy split and resizes alone, of the native decode with
+    its resizes and of zlib's inflate alone, and ms to a FileCache epoch's
+    first batch, beside
+    ``os.cpu_count()``; 13b: one
+    Pix2Pix ``fit`` epoch at batch 32 from FileCaches (``--host-cache
+    off``'s path; val: the first 40 pairs) against the resident epochs from
+    the same state: losses, parameters, buffers and Adam's state bit for
+    bit, S launches counted on the card against 3 per step and the runner's
+    steps against the derivation; then train epochs resident, streamed from
+    host memory (``--device-cache off``'s path), from the files and from the
+    reference-size files, the first two streamed paths also without their
+    prefetch thread, in ``STREAM_ROUNDS`` rounds of turns, and in the first
+    round from the files with the decoder at all cores less one and from
+    both sizes of files on the PIL twin: pairs/s with every
+    reading, device time per step and idle share; 13c: the same for
+    CycleGAN at batch 8 from two FileCaches (K1, K2 and S launches); 13d:
+    ``predict`` of both models over 64 PNGs from a FileCache against
+    ``predict`` over the decoded array: outputs and raw PNG bytes equal, S
+    and K1 launches per generator pass, images/s with the raw PNGs written;
+    then the count of JPEG files the phase sent to PIL, which must be 0. The
+    card's machine has no matplotlib, so 13d draws no grids
+    (``save_image_grid`` is stubbed);
 14. the 512² slice (the reference's published Pix2Pix run: 512², batch 4),
     depth 8, bf16, seeded weights and uint8 caches in memory. 14a: K1 and
     K2 against their plain versions at every 512² norm site of both models
@@ -174,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -182,7 +199,7 @@ import torch
 import torch.nn.functional as F
 
 from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
-from gan_tpu_torch.data import pipeline
+from gan_tpu_torch.data import native, pipeline
 from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch, single_jitter_batch
 from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION, FileCache, device_bytes
 from gan_tpu_torch import quality
@@ -231,6 +248,10 @@ STEM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # against the CPU's (the port against gan_tpu on the CPU: 9e-7).
 FEATURE_TOL = 1e-4
 N_QUALITY = 64      # images phase 12 generates and scores
+# the reference corpus's files (rows, columns): tools/curate_flir.py writes
+# each pair as two 512x640 halves side by side; CycleGAN's domains are the halves
+REF_PAIR, REF_SINGLE = (512, 1280), (512, 640)
+ONE_THREAD_FILES = 64   # files each single-threaded decode reading of phase 13a takes
 
 
 def sums_tol(count: int) -> float:
@@ -1813,24 +1834,107 @@ def write_noise_pngs(directory: str, n: int, shape: tuple, seed: int) -> list[st
     return paths
 
 
-def decode_rate(cache, build) -> tuple[np.ndarray, float, float]:
-    """The FileCache's rows over one epoch, held equal to the up-front
-    cache (``build()``); its files/s (median of 3 epochs at its 16
-    workers, the files in the page cache) and the median ms until an
-    epoch's first batch (the pool's start and one batch's decode, the part
-    of a streamed epoch that nothing overlaps)."""
-    runs, first = [], []
+def seconds(fn, reps: int = 3) -> float:
+    """The median wall seconds of ``reps`` calls of ``fn()``."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append(time.perf_counter() - t0)
+    return float(np.median(runs))
+
+
+def first_batch_ms(cache) -> float:
+    """The median ms (of 3 epochs) until an epoch's first batch: the
+    producer's start and one batch's decode, the part of a streamed epoch
+    that nothing overlaps. Closing the epoch is not timed."""
+    runs = []
     for _ in range(3):
         t0 = time.perf_counter()
         epoch = cache.epoch()
-        batches = [next(epoch)]
-        first.append(time.perf_counter() - t0)
-        batches += list(epoch)
+        next(epoch)
         runs.append(time.perf_counter() - t0)
-    rows = np.concatenate(batches)
-    if not np.array_equal(rows, build()):
-        raise AssertionError("the FileCache's rows differ from the decoded cache")
-    return rows, len(cache) / float(np.median(runs)), float(np.median(first)) * 1e3
+        epoch.close()
+    return float(np.median(runs)) * 1e3
+
+
+def idat(path: str) -> bytes:
+    """The zlib stream of a PNG: its IDAT chunks' data, joined."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, out = 8, []
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            out.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    return b"".join(out)
+
+
+def twin(rows, workers: int):
+    """``rows`` on the PIL twin (every file through its per-file sample) with
+    a pool of ``workers`` threads."""
+    return pipeline.Rows(rows.sample, rows.shape, workers=workers)
+
+
+def native_threads(rows, threads: int):
+    """``rows`` on the native decoder with ``threads`` threads a call."""
+    return pipeline.Rows(rows.sample, rows.shape, rows.native_batch, threads=threads)
+
+
+def decode_numbers(what: str, paths: list, rows, val_rows, batch: int, split, smi: str) -> float:
+    """13a for one kind of file. The gate: the native rows of every file
+    equal the PIL twin's bit for bit, in the train and the val form. Then,
+    the files in the page cache: files/s of the native decoder at 1 thread,
+    at all cores less one and at all cores, and of the PIL twin at 1 worker
+    and at the FileCache's 16; single-threaded ms per file of PIL's decode
+    alone, of the numpy resizes alone (``split(image)``: the split and
+    resizes of one decoded file), of the native decode with its resizes and
+    of zlib's inflate of the file's IDAT data alone (into a buffer of the
+    rows' size, as the decoder inflates); ms to a FileCache epoch's first
+    batch of ``batch``, native and twin. The single-threaded readings take
+    the first ``ONE_THREAD_FILES`` files. Returns the native files/s at all
+    cores."""
+    for form, r in (("train", rows), ("val", val_rows)):
+        got, want = r(paths), twin(r, pipeline.DECODE_WORKERS)(paths)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{what}: the native {form} rows differ from the PIL twin's")
+    print(f"{what}: native rows equal the PIL twin's bit for bit over all {len(paths)} files, "
+          f"train {rows.shape} and val {val_rows.shape}")
+    cores = native.default_threads()
+    rates = {}
+    few = paths[:ONE_THREAD_FILES]
+    for label, r, files in (("native, 1 thread", native_threads(rows, 1), few),
+                            (f"native, {cores - 1} threads", native_threads(rows, cores - 1), paths),
+                            (f"native, {cores} threads (the default)", rows, paths),
+                            ("PIL twin, 1 worker", twin(rows, 1), few),
+                            (f"PIL twin, {pipeline.DECODE_WORKERS} workers",
+                             twin(rows, pipeline.DECODE_WORKERS), paths)):
+        rates[label] = len(files) / seconds(lambda: r(files))
+        print(f"{what}: {label}: {rates[label]:.1f} files/s over {len(files)} files")
+    images = [pipeline.decode_image(p, rows.shape[-1]) for p in few]
+    streams = [idat(p) for p in few]
+    raw = images[0].shape[0] * (images[0].shape[1] + 1)   # 8-bit gray rows and their filter bytes
+    pil_ms = seconds(lambda: [pipeline.decode_image(p, rows.shape[-1]) for p in few]) * 1e3
+    resize_ms = seconds(lambda: [split(im) for im in images]) * 1e3
+    inflate_ms = seconds(lambda: [zlib.decompress(z, bufsize=raw) for z in streams]) * 1e3
+    n = len(few)
+    print(f"{what}, one thread, ms per file: PIL decode {pil_ms / n:.3f}, numpy split and resizes "
+          f"{resize_ms / n:.3f} (together {(pil_ms + resize_ms) / n:.3f}); native decode and "
+          f"resizes {1e3 / rates['native, 1 thread']:.3f}, of which zlib's inflate alone "
+          f"(zlib.decompress of the IDAT data into the rows' size, zlib {zlib.ZLIB_RUNTIME_VERSION}) "
+          f"{inflate_ms / n:.3f}")
+    pil_16 = rates[f"PIL twin, {pipeline.DECODE_WORKERS} workers"]
+    print(f"{what}: PIL twin at {pipeline.DECODE_WORKERS} workers {pil_16:.1f} files/s against "
+          f"{cores} cores x its 1-worker rate = {cores * rates['PIL twin, 1 worker']:.1f}; "
+          f"native at {cores} threads {rates[f'native, {cores} threads (the default)'] / pil_16:.2f}x "
+          "the PIL twin at 16")
+    first = {label: first_batch_ms(FileCache(paths, r, batch))
+             for label, r in (("native", rows), ("PIL twin", twin(rows, pipeline.DECODE_WORKERS)))}
+    print(f"{what}: first batch of {batch} after {first['native']:.1f} ms native, "
+          f"{first['PIL twin']:.1f} ms PIL twin; {cores} cores usable, os.cpu_count() "
+          f"{os.cpu_count()} ({smi})")
+    return rates[f"native, {cores} threads (the default)"]
 
 
 def recorded_epochs(trainer) -> list:
@@ -1884,18 +1988,21 @@ def no_prefetch(fn):
 
 
 def streamed_numbers(paths: dict, baselines: dict, steps: int, rows: int, h2d_bytes: int,
-                     decode: float, smi: str) -> None:
+                     decode: str, smi: str, once: dict) -> None:
     """Train epochs (all replays and the eager tail) of each path and each
     baseline, timed to the card's synchronisation in ``STREAM_ROUNDS``
-    rounds of them all in turns and back: pairs/s at the median, every
-    reading and its spread; then each path (not the baselines, which run
-    the same device work) profiled once: device time per step and the
-    card's idle share, beside the decode rate. The files are read from the
-    page cache (written just before): disk reads are not measured."""
-    every = {**paths, **baselines}
+    rounds of them all in turns and back (the paths of ``once`` in the
+    first round only, there and back): pairs/s at the median, every reading
+    and its spread; then each path and each of ``once`` (not the baselines,
+    which run the same device work) profiled once: device time per step and
+    the card's idle share, beside the decode rates (``decode``). The files are read from
+    the page cache (written just before): disk reads are not measured."""
+    every = {**paths, **baselines, **once}
     runs = {label: [] for label in every}
-    for order in (list(every), list(every)[::-1]) * STREAM_ROUNDS:
+    for r, order in enumerate((list(every), list(every)[::-1]) * STREAM_ROUNDS):
         for label in order:
+            if label in once and r >= 2:
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             every[label]()
@@ -1905,7 +2012,7 @@ def streamed_numbers(paths: dict, baselines: dict, steps: int, rows: int, h2d_by
         epoch_s = float(np.median(runs[label]))
         spread = (max(runs[label]) - min(runs[label])) / epoch_s
         device = ""
-        if label in paths:
+        if label not in baselines:
             print(f"train epoch, {label}: device time per step:")
             busy_us, _ = profile_device(fn, calls=1, steps=steps)
             device = (f"; device {busy_us / 1e3:.3f} ms per step, so the card is idle "
@@ -1916,7 +2023,7 @@ def streamed_numbers(paths: dict, baselines: dict, steps: int, rows: int, h2d_by
               f"{rows / min(runs[label]):.2f}), {epoch_s / steps * 1e3:.3f} ms per step"
               f"{device} ({smi})")
     print(f"host-to-device bytes per streamed step {h2d_bytes:,} (pinned, on the compute "
-          f"stream); decode rate {decode:.1f} files/s with {os.cpu_count()} host cores")
+          f"stream); native decode {decode} with {native.default_threads()} threads")
 
 
 def check_streamed_predict(trainer, cache, array, names, tmp: str, per_pass: dict) -> dict:
@@ -1926,7 +2033,8 @@ def check_streamed_predict(trainer, cache, array, names, tmp: str, per_pass: dic
     absent on the card's machine, so the grids are not drawn
     (``save_image_grid`` is stubbed): the raw PNGs are written
     (``write_raw``). Then the streamed predict's images/s, decode and PNG
-    writing included. Returns the launches."""
+    writing included, on the native decoder and, in turns, on the PIL twin.
+    Returns the launches."""
     preds = {}
 
     def run(source, label):
@@ -1961,14 +2069,18 @@ def check_streamed_predict(trainer, cache, array, names, tmp: str, per_pass: dic
           f"wrappers {host}, expected {want}")
     if launches != want or host != want:
         raise AssertionError("launch counts differ from the generator's structure")
-    runs = []
+    pil = FileCache(cache.paths, twin(cache.rows, pipeline.DECODE_WORKERS), cache.batch_size)
+    runs = {"native": [], "PIL twin": []}
     for i in range(3):
-        t0 = time.perf_counter()
-        run(cache, f"timed{i}")
-        runs.append(time.perf_counter() - t0)
-    e2e = float(np.median(runs))
-    print(f"streamed predict of {len(names)} PNGs with the raw PNGs written: {e2e * 1e3:.1f} ms "
-          f"(runs {[round(r * 1e3, 1) for r in runs]}), {len(names) / e2e:.2f} images/s")
+        for label, source in (("native", cache), ("PIL twin", pil)):
+            t0 = time.perf_counter()
+            run(source, f"timed{i}")
+            runs[label].append(time.perf_counter() - t0)
+    for label, r in runs.items():
+        e2e = float(np.median(r))
+        print(f"streamed predict of {len(names)} PNGs, {label}, with the raw PNGs written: "
+              f"{e2e * 1e3:.1f} ms (runs {[round(x * 1e3, 1) for x in r]}), "
+              f"{len(names) / e2e:.2f} images/s")
     return launches
 
 
@@ -1979,30 +2091,46 @@ def run_host_data(tmp: str, smi: str) -> dict:
                              SEED + 15)
     xs = write_noise_pngs(os.path.join(tmp, "x"), N_TRAIN_X, (IMG_SIZE, IMG_SIZE), SEED + 16)
     ys = write_noise_pngs(os.path.join(tmp, "y"), N_TRAIN_Y, (IMG_SIZE, IMG_SIZE), SEED + 17)
+    ref_pairs = write_noise_pngs(os.path.join(tmp, "ref_pairs"), N_P2P_TRAIN, REF_PAIR, SEED + 18)
+    ref_xs = write_noise_pngs(os.path.join(tmp, "ref_x"), N_TRAIN_X, REF_SINGLE, SEED + 19)
+    ref_ys = write_noise_pngs(os.path.join(tmp, "ref_y"), N_TRAIN_Y, REF_SINGLE, SEED + 20)
+    mb = lambda files: sum(os.path.getsize(p) for p in files) / 1e6
     print(f"{len(pairs)} Pix2Pix pairs of {2 * IMG_SIZE}x{IMG_SIZE} and {len(xs)} X and {len(ys)} "
-          f"Y CycleGAN images of {IMG_SIZE}², uniform noise, "
-          f"{sum(os.path.getsize(p) for p in pairs + xs + ys) / 1e6:.1f} MB of PNG")
+          f"Y CycleGAN images of {IMG_SIZE}², uniform noise, {mb(pairs + xs + ys):.1f} MB of PNG; "
+          f"at the reference corpus's sizes as many pairs of {REF_PAIR[1]}x{REF_PAIR[0]} and "
+          f"singles of {REF_SINGLE[1]}x{REF_SINGLE[0]}, {mb(ref_pairs + ref_xs + ref_ys):.1f} MB")
 
-    phase(f"13a. decode rate on the card's host ({os.cpu_count()} cores), FileCache at 16 workers")
+    phase(f"13a. decode on the card's host ({os.cpu_count()} cores): the native decoder against "
+          "the PIL twin")
     p2p = dict(img_size=IMG_SIZE, channels=1, orient="left")
-    p2p_sample = lambda train: functools.partial(pipeline.pix2pix_sample, train=train, **p2p)
-    cg_sample = lambda train: functools.partial(pipeline.cyclegan_sample, img_size=IMG_SIZE,
-                                                channels=1, train=train)
-    p2p_train = FileCache(pairs, p2p_sample(True), (2, pad, pad, 1), P2P_BATCH)
-    t0 = time.perf_counter()
+    made = []   # every Rows of the phase, for their JPEG counts
+
+    def rows(kind: str, train: bool, **kw):
+        make = pipeline.pix2pix_rows if kind == "pix2pix" else pipeline.cyclegan_rows
+        made.append(make(train=train, **(p2p if kind == "pix2pix" else
+                                         dict(img_size=IMG_SIZE, channels=1)), **kw))
+        return made[-1]
+
+    p2p_rows, cg_rows = rows("pix2pix", True), rows("cyclegan", True)
+    split_pair = lambda im: [pipeline.resize_nearest_np(h, pad, pad)
+                             for h in pipeline.split_pair(im, "left")]
+    resize_twice = lambda im: pipeline.resize_nearest_np(
+        pipeline.resize_nearest_np(im, IMG_SIZE, IMG_SIZE), pad, pad)
+    p2p_rate, ref_p2p_rate = (decode_numbers(
+        f"Pix2Pix pairs ({w}x{h} -> 2 x {pad}²)", files, p2p_rows, rows("pix2pix", False),
+        P2P_BATCH, split_pair, smi)
+        for files, (h, w) in ((pairs, (IMG_SIZE, 2 * IMG_SIZE)), (ref_pairs, REF_PAIR)))
+    cg_rate, ref_cg_rate = (decode_numbers(
+        f"CycleGAN ({w}x{h} -> {IMG_SIZE}² -> {pad}²)", files, cg_rows, rows("cyclegan", False),
+        TRAIN_BATCH, resize_twice, smi)
+        for files, (h, w) in ((xs + ys, (IMG_SIZE, IMG_SIZE)), (ref_xs + ref_ys, REF_SINGLE)))
+    p2p_train = FileCache(pairs, p2p_rows, P2P_BATCH)
+    cg_x, cg_y = FileCache(xs, cg_rows, TRAIN_BATCH), FileCache(ys, cg_rows, TRAIN_BATCH)
     train_u8 = pipeline.build_pix2pix_cache(pairs, train=True, **p2p)
-    up_front = len(pairs) / (time.perf_counter() - t0)
-    _, p2p_rate, p2p_first = decode_rate(p2p_train, lambda: train_u8)
-    cg_x = FileCache(xs, cg_sample(True), (pad, pad, 1), TRAIN_BATCH)
-    cg_y = FileCache(ys, cg_sample(True), (pad, pad, 1), TRAIN_BATCH)
-    x_u8, cg_rate, cg_first = decode_rate(cg_x, lambda: pipeline.build_cyclegan_cache(
-        xs, img_size=IMG_SIZE, channels=1, train=True))
-    y_u8 = pipeline.build_cyclegan_cache(ys, img_size=IMG_SIZE, channels=1, train=True)
-    print(f"Pix2Pix pairs ({2 * IMG_SIZE}x{IMG_SIZE} -> 2 x {pad}²): FileCache {p2p_rate:.1f} "
-          f"files/s, first batch of {P2P_BATCH} after {p2p_first:.1f} ms; build_pix2pix_cache "
-          f"{up_front:.1f} files/s. CycleGAN ({IMG_SIZE}² -> {pad}²): FileCache {cg_rate:.1f} "
-          f"files/s, first batch of {TRAIN_BATCH} after {cg_first:.1f} ms; os.cpu_count() "
-          f"{os.cpu_count()} ({smi})")
+    x_u8, y_u8 = (pipeline.build_cyclegan_cache(p, img_size=IMG_SIZE, channels=1, train=True)
+                  for p in (xs, ys))
+    cores = native.default_threads()
+    ref = f"{REF_PAIR[1]}x{REF_PAIR[0]}"
 
     launches = {}
 
@@ -2016,8 +2144,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
             str(IMG_SIZE), "--batch-size", str(P2P_BATCH), "--dtype", "bf16", "--host-cache", "off"]
     cfg = parse_pix2pix(argv)
     streamed, resident = seeded_pix2pix(cfg), seeded_pix2pix(cfg)
-    val_fc = FileCache(pairs[:N_P2P_VAL], p2p_sample(False), (2, IMG_SIZE, IMG_SIZE, 1),
-                       P2P_BATCH)
+    val_fc = FileCache(pairs[:N_P2P_VAL], rows("pix2pix", False), P2P_BATCH)
     val_u8 = pipeline.build_pix2pix_cache(pairs[:N_P2P_VAL], train=False, **p2p)
     test = val_u8[:1]
     got = recorded_epochs(streamed)
@@ -2041,11 +2168,23 @@ def run_host_data(tmp: str, smi: str) -> dict:
     steps = -(-N_P2P_TRAIN // P2P_BATCH)
     from_host = lambda: streamed.run_epoch(train_u8, 1, training=True)
     from_files = lambda: streamed.run_epoch(p2p_train, 1, training=True)
+    less_one = FileCache(pairs, rows("pix2pix", True, threads=cores - 1), P2P_BATCH)
+    pil = FileCache(pairs, twin(p2p_rows, pipeline.DECODE_WORKERS), P2P_BATCH)
+    ref_files = FileCache(ref_pairs, p2p_rows, P2P_BATCH)
+    ref_pil = FileCache(ref_pairs, twin(p2p_rows, pipeline.DECODE_WORKERS), P2P_BATCH)
     streamed_numbers({"resident": lambda: resident.run_epoch(train_dev, 1, training=True),
-                      "host memory": from_host, "files": from_files},
+                      "host memory": from_host, "files": from_files,
+                      f"files of {ref}": lambda: streamed.run_epoch(ref_files, 1, training=True)},
                      {"host memory, no prefetch thread": no_prefetch(from_host),
                       "files, no prefetch thread": no_prefetch(from_files)},
-                     steps, N_P2P_TRAIN, P2P_BATCH * 2 * pad * pad, p2p_rate, smi)
+                     steps, N_P2P_TRAIN, P2P_BATCH * 2 * pad * pad,
+                     f"{p2p_rate:.1f} pair files/s of {2 * IMG_SIZE}x{IMG_SIZE}, "
+                     f"{ref_p2p_rate:.1f} of {ref}", smi,
+                     {f"files, native at {cores - 1} threads":
+                          lambda: streamed.run_epoch(less_one, 1, training=True),
+                      "files, PIL twin": lambda: streamed.run_epoch(pil, 1, training=True),
+                      f"files of {ref}, PIL twin": lambda: streamed.run_epoch(ref_pil, 1,
+                                                                              training=True)})
     if streamed.epoch_counts["captures"] != 2:
         raise AssertionError("the streamed runner was captured again")
     del streamed, resident, train_dev, val_dev
@@ -2058,8 +2197,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
     streamed, resident = CycleGANTrainer(cfg), CycleGANTrainer(cfg)
     for t in (streamed, resident):
         offsets_from_seed(t)
-    val = [FileCache(paths[:N_VAL], cg_sample(False), (IMG_SIZE, IMG_SIZE, 1), TRAIN_BATCH)
-           for paths in (xs, ys)]
+    val = [FileCache(paths[:N_VAL], rows("cyclegan", False), TRAIN_BATCH) for paths in (xs, ys)]
     val_u8 = [pipeline.build_cyclegan_cache(paths[:N_VAL], img_size=IMG_SIZE, channels=1)
               for paths in (xs, ys)]
     got = recorded_epochs(streamed)
@@ -2084,11 +2222,27 @@ def run_host_data(tmp: str, smi: str) -> dict:
     steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     from_host = lambda: streamed.run_epoch(x_u8, y_u8, 1, training=True)
     from_files = lambda: streamed.run_epoch(cg_x, cg_y, 1, training=True)
+    less_one = [FileCache(p, rows("cyclegan", True, threads=cores - 1), TRAIN_BATCH)
+                for p in (xs, ys)]
+    pil = [FileCache(p, twin(cg_rows, pipeline.DECODE_WORKERS), TRAIN_BATCH) for p in (xs, ys)]
+    ref_files = [FileCache(p, cg_rows, TRAIN_BATCH) for p in (ref_xs, ref_ys)]
+    ref_pil = [FileCache(p, twin(cg_rows, pipeline.DECODE_WORKERS), TRAIN_BATCH)
+               for p in (ref_xs, ref_ys)]
+    single = f"{REF_SINGLE[1]}x{REF_SINGLE[0]}"
     streamed_numbers({"resident": lambda: resident.run_epoch(*train_dev, 1, training=True),
-                      "host memory": from_host, "files": from_files},
+                      "host memory": from_host, "files": from_files,
+                      f"files of {single}": lambda: streamed.run_epoch(*ref_files, 1,
+                                                                       training=True)},
                      {"host memory, no prefetch thread": no_prefetch(from_host),
                       "files, no prefetch thread": no_prefetch(from_files)},
-                     steps, min(N_TRAIN_X, N_TRAIN_Y), 2 * TRAIN_BATCH * pad * pad, cg_rate, smi)
+                     steps, min(N_TRAIN_X, N_TRAIN_Y), 2 * TRAIN_BATCH * pad * pad,
+                     f"{cg_rate:.1f} single files/s of {IMG_SIZE}², {ref_cg_rate:.1f} of {single}",
+                     smi,
+                     {f"files, native at {cores - 1} threads":
+                          lambda: streamed.run_epoch(*less_one, 1, training=True),
+                      "files, PIL twin": lambda: streamed.run_epoch(*pil, 1, training=True),
+                      f"files of {single}, PIL twin": lambda: streamed.run_epoch(*ref_pil, 1,
+                                                                                 training=True)})
     if streamed.epoch_counts["captures"] != 2:
         raise AssertionError("the streamed runner was captured again")
     del streamed, resident, train_dev, val_dev
@@ -2101,8 +2255,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
                                             "--dtype", "bf16", "--host-cache", "off"]))
     print("Pix2Pix (phase 9's seeded weights):")
     add(check_streamed_predict(
-        trainer, FileCache(pairs[:N_QUALITY], p2p_sample(False), (2, IMG_SIZE, IMG_SIZE, 1),
-                           P2P_BATCH),
+        trainer, FileCache(pairs[:N_QUALITY], rows("pix2pix", False), P2P_BATCH),
         pipeline.build_pix2pix_cache(pairs[:N_QUALITY], train=False, **p2p), names,
         os.path.join(tmp, "p2p_predict"), per_pass))
     trainer = CycleGANTrainer(parse_cyclegan(["--input-images", tmp, "--output", tmp, "--predict",
@@ -2111,10 +2264,15 @@ def run_host_data(tmp: str, smi: str) -> dict:
     offsets_from_seed(trainer)
     print("CycleGAN (phase 5's seeded weights):")
     add(check_streamed_predict(
-        trainer, FileCache(xs[:N_QUALITY], cg_sample(False), (IMG_SIZE, IMG_SIZE, 1), TRAIN_BATCH),
+        trainer, FileCache(xs[:N_QUALITY], rows("cyclegan", False), TRAIN_BATCH),
         pipeline.build_cyclegan_cache(xs[:N_QUALITY], img_size=IMG_SIZE, channels=1),
         [os.path.basename(p) for p in xs[:N_QUALITY]], os.path.join(tmp, "cg_predict"),
         per_pass))
+    jpegs = sum(r.jpeg_files for r in made)
+    print(f"JPEG files sent to PIL in phase 13: {jpegs} (every file is a PNG); os.cpu_count() "
+          f"{os.cpu_count()}; {smi}")
+    if jpegs:
+        raise AssertionError("a PNG went through PIL")
     return launches
 
 
@@ -2443,6 +2601,9 @@ def main() -> int:
     print(f"built {os.path.relpath(path)} in {seconds:.2f} s (0 = reused)")
     with open(path + ".log") as f:
         print("".join(line for line in f if "registers" in line or "spill" in line), end="")
+    path, seconds = native.build()
+    print(f"built the native PNG decoder {os.path.relpath(path)} with {native.compiler()} in "
+          f"{seconds:.2f} s (0 = reused)")
 
     phase("3. instance-norm forward kernel (K1) vs plain, generator shapes, batch 16")
     sites = norm_sites(IMG_SIZE, generator_depth(IMG_SIZE))

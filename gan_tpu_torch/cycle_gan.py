@@ -22,7 +22,9 @@ in-process rewind, epoch-0 anchor checkpoint or exit code 17.
 ``--host-cache off`` (or ``auto`` when the decoded corpus would exceed half
 of the host's available memory) streams train, val and predict batches
 straight from the files through FileCaches; the test images stay in
-memory. ``--device-cache off`` (or ``auto`` when the caches exceed 0.4 of
+memory. Files are decoded by the native PNG decoder
+(gan_tpu_torch.data.native), JPEGs by PIL; ``GAN_TPU_NATIVE=0`` decodes
+every file with PIL. ``--device-cache off`` (or ``auto`` when the caches exceed 0.4 of
 the card's memory) keeps decoded caches on the host and streams their
 batches to the card each step. Either way the epochs equal the resident
 ones. ``--num-devices`` > 1 is not ported yet: with ``--train`` it exits
@@ -38,14 +40,12 @@ CUDA kernels on the card.
 
 from __future__ import annotations
 
-import functools
 import os
 import sys
 
 from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, refuse_unported
-from gan_tpu_torch.data.augment import JITTER_PAD
 from gan_tpu_torch.data.loader import host_or_file_cache
-from gan_tpu_torch.data.pipeline import cyclegan_sample
+from gan_tpu_torch.data.pipeline import cyclegan_rows
 from gan_tpu_torch.data.split import cyclegan_split, list_images
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
@@ -70,12 +70,9 @@ def main(cfg: CycleGANConfig) -> None:
         """A decoded uint8 host cache, or a FileCache that streams from the
         files when the decoded corpus would not fit in host memory or under
         --host-cache off (gan_tpu's cycle_gan.py)."""
-        size = cfg.img_size + (JITTER_PAD if train else 0)
-        sample = functools.partial(cyclegan_sample, img_size=cfg.img_size,
-                                   channels=cfg.n_channels, train=train)
-        return host_or_file_cache([os.path.join(directory, n) for n in names], sample,
-                                  (size, size, cfg.n_channels), cfg.batch_size,
-                                  cfg.host_cache if allow_stream else "on")
+        rows = cyclegan_rows(img_size=cfg.img_size, channels=cfg.n_channels, train=train)
+        return host_or_file_cache([os.path.join(directory, n) for n in names], rows,
+                                  cfg.batch_size, cfg.host_cache if allow_stream else "on")
 
     if cfg.predict:
         predict_cache = cache(cfg.input_images, contents_x, train=False, allow_stream=True)

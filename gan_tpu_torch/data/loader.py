@@ -25,20 +25,18 @@ import os
 import queue
 import threading
 import weakref
-from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from gan_tpu_torch.data.pipeline import decode_all
+from gan_tpu_torch.data.pipeline import Rows
 
 # gan_tpu's estimate of a device's memory where the backend reports none (the CPU)
 FALLBACK_DEVICE_BYTES = 12 << 30
 HOST_CACHE_FRACTION = 0.5    # of MemAvailable: the decode needs headroom for its threads
 DEVICE_CACHE_FRACTION = 0.4  # of the device's memory: the rest is the training's
 PREFETCH_BATCHES = 4         # decoded batches a FileCache epoch holds ahead of its consumer
-DECODE_WORKERS = 16          # a FileCache epoch's decode threads
 
 
 def host_ram_available() -> int:
@@ -62,18 +60,17 @@ def host_cache_fits(nbytes: int, mode: str = "auto") -> bool:
     return nbytes <= HOST_CACHE_FRACTION * host_ram_available()
 
 
-def host_or_file_cache(paths: Sequence[str], sample: Callable[[str], np.ndarray],
-                       sample_shape: tuple, batch_size: int, mode: str):
+def host_or_file_cache(paths: Sequence[str], rows: Rows, batch_size: int, mode: str):
     """The CLIs' cache of one split (gan_tpu's ``cache()`` in its CLIs):
-    ``sample`` of every file decoded up front into an (N, *sample_shape)
-    uint8 host array, or, when that would not fit (:func:`host_cache_fits`
-    under ``mode``, the ``--host-cache`` flag), a :class:`FileCache` that
-    decodes each batch when it is needed. ``mode`` "on", for a split that
-    stays in memory whatever the flag, always decodes."""
-    if host_cache_fits(len(paths) * int(np.prod(sample_shape)), mode):
-        return decode_all(paths, sample, sample_shape)
+    every file decoded up front by ``rows`` into an (N, *rows.shape) uint8
+    host array, or, when that would not fit (:func:`host_cache_fits` under
+    ``mode``, the ``--host-cache`` flag), a :class:`FileCache` that decodes
+    each batch when it is needed. ``mode`` "on", for a split that stays in
+    memory whatever the flag, always decodes."""
+    if host_cache_fits(len(paths) * int(np.prod(rows.shape)), mode):
+        return rows(paths)
     print(f"Host cache disabled for {len(paths)} files — streaming from disk.", flush=True)
-    return FileCache(paths, sample, sample_shape, batch_size)
+    return FileCache(paths, rows, batch_size)
 
 
 def device_bytes(device: torch.device) -> int:
@@ -150,23 +147,22 @@ class FileCache:
     those of the uint8 host cache it stands for; the trainers take an
     ndarray or a FileCache, and a FileCache always takes the streamed epoch.
 
-    ``preprocess(path)`` is the deterministic per-file work (decode, split,
-    resize: :func:`gan_tpu_torch.data.pipeline.pix2pix_sample` or
-    ``cyclegan_sample``); the random augment runs on the device per batch.
-    An :meth:`epoch` decodes its batches on ``DECODE_WORKERS`` threads,
-    ``PREFETCH_BATCHES`` ahead of its consumer. The pool and the producer
-    thread belong to one epoch: they start with its first batch and are shut
-    down when it ends, is closed or is dropped, so an idle FileCache holds no
-    thread. gan_tpu's ``drop_remainder`` and ``rows`` are not ported:
-    nothing calls them.
+    ``rows`` (a :class:`~gan_tpu_torch.data.pipeline.Rows`) is the
+    deterministic per-file work (decode, split, resize); the random augment
+    runs on the device per batch. An :meth:`epoch` decodes each batch with
+    one call of ``rows`` (by default one native call, its threads off the
+    GIL) on a producer thread, ``PREFETCH_BATCHES`` ahead of its consumer.
+    The producer belongs to one epoch: it starts with its first batch and
+    ends when the epoch ends, is closed or is dropped, so an idle FileCache
+    holds no thread. gan_tpu's ``drop_remainder`` and ``rows`` are not
+    ported: nothing calls them.
     """
 
-    def __init__(self, paths: Sequence[str], preprocess: Callable[[str], np.ndarray],
-                 sample_shape: tuple, batch_size: int):
+    def __init__(self, paths: Sequence[str], rows: Rows, batch_size: int):
         self.paths = list(paths)
-        self.preprocess = preprocess
+        self.rows = rows
         self.batch_size = batch_size
-        self.shape = (len(self.paths),) + tuple(sample_shape)
+        self.shape = (len(self.paths),) + rows.shape
         self.nbytes = int(np.prod(self.shape))
 
     def __len__(self) -> int:
@@ -180,14 +176,13 @@ class FileCache:
         b = self.batch_size
         q: queue.Queue = queue.Queue(maxsize=PREFETCH_BATCHES)
         stop = threading.Event()
-        pool = ThreadPoolExecutor(max_workers=DECODE_WORKERS)
-        load = lambda i: self.preprocess(self.paths[int(i)])
 
         def producer():
             try:
                 for lo in range(0, len(idx), b):
-                    if stop.is_set() or not _put(q, np.stack(list(pool.map(load, idx[lo:lo + b]))),
-                                                 stop):
+                    if stop.is_set():
+                        return
+                    if not _put(q, self.rows([self.paths[int(i)] for i in idx[lo:lo + b]]), stop):
                         return
                 _put(q, _DONE, stop)
             except BaseException as e:   # surface decode errors to the consumer
@@ -207,7 +202,6 @@ class FileCache:
             stop.set()
             _drain(q)
             thread.join()
-            pool.shutdown()
 
 
 def prefetch_iter(it, depth: int = 2):

@@ -1,15 +1,20 @@
 """Host-side decode + deterministic resize into the uint8 caches
 (counterpart of gan_tpu/data/decode.py, gan_tpu/data/pipeline.py
 ``split_pair``, ``build_pix2pix_cache`` and ``build_cyclegan_cache``, and
-gan_tpu/ops/resize.py ``resize_nearest_np``). gan_tpu's native C++ loader,
-bit-identical to its Python path, is not ported.
+gan_tpu/ops/resize.py ``resize_nearest_np``).
 
-``pix2pix_sample`` and ``cyclegan_sample`` are the per-file work: the
-``build_*_cache`` functions map them over a thread pool (:func:`decode_all`),
-and a
-:class:`~gan_tpu_torch.data.loader.FileCache` calls them one file at a time
-(gan_tpu's CLIs give it ``build_*_cache([path])[0]``, which here would open
-a pool per file; the result is the same bytes).
+A :class:`Rows` is one split's per-file work (decode, split, resize) over a
+list of files. By default it is one call of the native decoder
+(:mod:`gan_tpu_torch.data.native`, the port of gan_tpu's native loader: PNG
+over zlib, on C++ threads, off the GIL). ``pix2pix_rows`` and
+``cyclegan_rows`` make the CLIs' rows, the ``build_*_cache`` functions
+decode a whole split with them, and a
+:class:`~gan_tpu_torch.data.loader.FileCache` calls them once per batch.
+
+``decode_image``, ``pix2pix_sample`` and ``cyclegan_sample`` are the plain
+per-file twins over PIL: a :class:`Rows` sends JPEG files through them one
+at a time (the native decoder reads PNG only), and ``GAN_TPU_NATIVE=0``
+sends every file, on a pool of ``DECODE_WORKERS`` threads.
 
 PIL is imported inside :func:`decode_image`, so the package imports without it.
 """
@@ -17,18 +22,30 @@ PIL is imported inside :func:`decode_image`, so the package imports without it.
 from __future__ import annotations
 
 import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from gan_tpu_torch.data import native
 from gan_tpu_torch.data.augment import JITTER_PAD
+
+DECODE_WORKERS = 16   # the PIL twin's threads per call (gan_tpu's pool width)
 
 
 def decode_image(path: str, channels: int) -> np.ndarray:
-    """Decode an image file to uint8 (H, W, C); 1 -> grayscale (PIL luma), 3 -> RGB."""
+    """Decode an image file to uint8 (H, W, C); 1 -> grayscale (PIL luma), 3 -> RGB.
+
+    16-bit gray (PIL's ``I;16`` modes, or ``I`` from a PNG in older Pillow)
+    keeps the high byte of each sample, as gan_tpu's default (native) path
+    does: PIL's ``convert`` would clip it to 255."""
     from PIL import Image
 
     with Image.open(path) as im:
+        if im.mode.startswith("I;16") or (im.mode == "I" and im.format == "PNG"):
+            gray = (np.asarray(im).astype(np.uint32) >> 8).astype(np.uint8)[:, :, None]
+            return gray if channels == 1 else np.repeat(gray, 3, axis=2)
         arr = np.asarray(im.convert("L" if channels == 1 else "RGB"), dtype=np.uint8)
     return arr[:, :, None] if channels == 1 else arr
 
@@ -77,27 +94,89 @@ def cyclegan_sample(path: str, *, img_size: int, channels: int,
     return resize_nearest_np(img, img_size + JITTER_PAD, img_size + JITTER_PAD) if train else img
 
 
-def decode_all(paths: list[str], sample, sample_shape: tuple, workers: int = 16) -> np.ndarray:
-    """(N, *sample_shape) uint8: ``sample(path)`` of each path, decoded on a
-    pool of ``workers`` threads."""
-    if not paths:
-        return np.zeros((0, *sample_shape), np.uint8)
+def decode_all(paths: Sequence[str], sample: Callable[[str], np.ndarray], out: np.ndarray,
+               workers: int = DECODE_WORKERS) -> np.ndarray:
+    """``out[i] = sample(paths[i])`` for every path, on a pool of
+    ``workers`` threads (in the calling thread for 1); returns ``out``."""
+    if workers <= 1 or len(paths) <= 1:
+        for i, p in enumerate(paths):
+            out[i] = sample(p)
+        return out
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        return np.stack(list(ex.map(sample, paths)))
+        for i, row in enumerate(ex.map(sample, paths)):
+            out[i] = row
+    return out
+
+
+class Rows:
+    """One split's per-file work over a list of files: ``rows(paths)`` is
+    the (N, *shape) uint8 array of ``sample(path)`` for each path, written
+    into ``out`` when given.
+
+    With ``native_batch`` (``native.load_pair_batch`` or
+    ``load_single_batch`` with its settings bound), the files are decoded by one native call on
+    ``threads`` C++ threads (None: ``native.default_threads()``), with no
+    GIL held; JPEG files, which it refuses, then go through ``sample`` one
+    at a time, and ``jpeg_files`` counts them. Without ``native_batch``, or
+    under ``GAN_TPU_NATIVE=0``, every file goes through ``sample`` on a
+    pool of ``workers`` threads. Either way the rows are the same bytes."""
+
+    def __init__(self, sample: Callable[[str], np.ndarray], shape: tuple,
+                 native_batch: Optional[Callable] = None, *, workers: int = DECODE_WORKERS,
+                 threads: Optional[int] = None):
+        self.sample = sample
+        self.shape = tuple(shape)
+        self.native_batch = native_batch
+        self.workers = workers
+        self.threads = threads
+        self.jpeg_files = 0
+        self._lock = threading.Lock()   # a FileCache's producer and the main thread may both call
+
+    def __call__(self, paths: Sequence[str], out: Optional[np.ndarray] = None) -> np.ndarray:
+        paths = list(paths)
+        if out is None:
+            out = np.empty((len(paths), *self.shape), np.uint8)
+        if self.native_batch is None or not native.enabled():
+            return decode_all(paths, self.sample, out, self.workers)
+        _, jpegs = self.native_batch(paths, out=out, threads=self.threads)
+        for i in jpegs:
+            out[i] = self.sample(paths[i])
+        if jpegs:
+            with self._lock:
+                self.jpeg_files += len(jpegs)
+        return out
+
+
+def pix2pix_rows(*, img_size: int, channels: int, orient: str, train: bool = False,
+                 **kw) -> Rows:
+    """:class:`Rows` of :func:`pix2pix_sample`: (2, S', S', C) per pair file."""
+    size = img_size + JITTER_PAD if train else img_size
+    return Rows(functools.partial(pix2pix_sample, img_size=img_size, channels=channels,
+                                  orient=orient, train=train),
+                (2, size, size, channels),
+                functools.partial(native.load_pair_batch, channels=channels, orient=orient,
+                                  size=size), **kw)
+
+
+def cyclegan_rows(*, img_size: int, channels: int, train: bool = False, **kw) -> Rows:
+    """:class:`Rows` of :func:`cyclegan_sample`: (S', S', C) per file."""
+    size = img_size + JITTER_PAD if train else img_size
+    return Rows(functools.partial(cyclegan_sample, img_size=img_size, channels=channels,
+                                  train=train),
+                (size, size, channels),
+                functools.partial(native.load_single_batch, channels=channels,
+                                  img_size=img_size, out_size=size), **kw)
 
 
 def build_pix2pix_cache(paths: list[str], *, img_size: int, channels: int, orient: str,
-                        train: bool = False, workers: int = 16) -> np.ndarray:
+                        train: bool = False, workers: int = DECODE_WORKERS) -> np.ndarray:
     """(N, 2, S', S', C) uint8: :func:`pix2pix_sample` of each path."""
-    size = img_size + JITTER_PAD if train else img_size
-    one = functools.partial(pix2pix_sample, img_size=img_size, channels=channels, orient=orient,
-                            train=train)
-    return decode_all(paths, one, (2, size, size, channels), workers)
+    return pix2pix_rows(img_size=img_size, channels=channels, orient=orient, train=train,
+                        workers=workers)(paths)
 
 
 def build_cyclegan_cache(paths: list[str], *, img_size: int, channels: int,
-                         train: bool = False, workers: int = 16) -> np.ndarray:
+                         train: bool = False, workers: int = DECODE_WORKERS) -> np.ndarray:
     """(N, S', S', C) uint8: :func:`cyclegan_sample` of each path."""
-    size = img_size + JITTER_PAD if train else img_size
-    one = functools.partial(cyclegan_sample, img_size=img_size, channels=channels, train=train)
-    return decode_all(paths, one, (size, size, channels), workers)
+    return cyclegan_rows(img_size=img_size, channels=channels, train=train,
+                         workers=workers)(paths)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from gan_tpu_torch import quality
-from gan_tpu_torch.data.pipeline import build_pix2pix_cache, decode_image, resize_nearest_np
+from gan_tpu_torch.data.pipeline import build_cyclegan_cache, build_pix2pix_cache
 from gan_tpu_torch.device import default_device
 from gan_tpu_torch.models.inception import extract_features, load_params
 
@@ -36,9 +36,10 @@ def _image_names(d: str) -> list[str]:
 
 
 def _load(d: str, names: list[str], channels: int, size: int) -> np.ndarray:
-    imgs = [resize_nearest_np(decode_image(os.path.join(d, n), channels), size, size)
-            for n in names]
-    return np.stack(imgs).astype(np.float32) / 127.5 - 1.0
+    """Each image decoded and nearest-resized to ``size`` (CycleGAN's val rows), in [-1, 1]."""
+    imgs = build_cyclegan_cache([os.path.join(d, n) for n in names], img_size=size,
+                                channels=channels)
+    return imgs.astype(np.float32) / 127.5 - 1.0
 
 
 def main(argv=None) -> int:

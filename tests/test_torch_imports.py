@@ -34,7 +34,7 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
         "import gan_tpu_torch.pix2pix, gan_tpu_torch.train.pix2pix_trainer, gan_tpu_torch.ops.ssim\n"
         "import gan_tpu_torch.train.base, gan_tpu_torch.data.augment, gan_tpu_torch.data.split\n"
         "import gan_tpu_torch.models.inception, gan_tpu_torch.quality\n"
-        "import gan_tpu_torch.tools.eval_quality\n"
+        "import gan_tpu_torch.tools.eval_quality, gan_tpu_torch.data.native\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'PIL', 'matplotlib',\n"
@@ -44,6 +44,36 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_decoder_includes_only_zlib_and_the_standard_library():
+    """The card's machine has zlib's headers but not libpng's or libjpeg's."""
+    with open(os.path.join(REPO, "gan_tpu_torch", "data", "native", "decoder.cpp")) as f:
+        includes = [line.split()[1] for line in f if line.startswith("#include")]
+    assert "<zlib.h>" in includes
+    assert not {"<png.h>", "<jpeglib.h>"} & set(includes)
+    assert all(h == "<zlib.h>" or not h.endswith('.h>') for h in includes), includes
+
+
+def test_native_build_without_a_compiler_raises_and_names_the_switch(tmp_path):
+    """With ``CXX`` naming a missing program the first decode raises a build
+    error that names ``GAN_TPU_NATIVE=0``; nothing falls back to PIL."""
+    png = tmp_path / "x.png"
+    png.write_bytes(b"\x89PNG\r\n\x1a\n")
+    code = (
+        "import sys\n"
+        "from gan_tpu_torch.data import native, pipeline\n"
+        "try:\n"
+        f"    pipeline.build_cyclegan_cache([{str(png)!r}], img_size=8, channels=1)\n"
+        "except native.NativeBuildError as e:\n"
+        "    print(e)\n"
+        "    sys.exit(3)\n")
+    env = dict(os.environ, CXX=str(tmp_path / "no-such-compiler"))
+    env.pop("GAN_TPU_NATIVE", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert "GAN_TPU_NATIVE=0" in proc.stdout and "no-such-compiler" in proc.stdout
 
 
 def test_device_selection_raises_without_cuda(monkeypatch):

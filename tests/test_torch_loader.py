@@ -4,9 +4,10 @@ byte for byte on the same seeded PNGs and orders, the per-file
 preprocessors, ``host_cache_fits``' decisions, the device plan, and
 ``prefetch_iter``'s order, errors, passthrough and release of its producer.
 
-gan_tpu's pipeline runs its Python path (``GAN_TPU_NATIVE=0``): its native
-loader is bit-identical to it (tests/test_native.py) and would be built by
-``make`` on first use."""
+Both packages' pipelines run their PIL paths (``GAN_TPU_NATIVE=0``, one
+switch for both): gan_tpu's native loader would be built by ``make`` on
+first use, and the port's native decoder is held to both packages in
+tests/test_torch_native.py."""
 
 import gc
 import threading
@@ -43,6 +44,14 @@ def _pngs(root, kind: str, n: int = 7) -> list[str]:
     return paths
 
 
+def _rows(kind: str, train: bool, channels: int = 1) -> pipeline.Rows:
+    """The port's :class:`pipeline.Rows` of one setting (as its CLIs make them)."""
+    kw = dict(img_size=SIZE, channels=channels, train=train)
+    if kind == "pix2pix":
+        return pipeline.pix2pix_rows(orient="right", **kw)
+    return pipeline.cyclegan_rows(**kw)
+
+
 def _samplers(kind: str, train: bool, channels: int = 1):
     """(the port's per-file sample, gan_tpu's per-file form as its CLI
     builds it, the port's cache builder, gan_tpu's), for one setting."""
@@ -77,14 +86,14 @@ def test_per_file_samples_equal_the_cache_rows(tmp_path, kind, train, channels):
 @pytest.mark.parametrize("rebatch", [None, 3], ids=["own_batch", "rebatched"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_filecache_batches_equal_gan_tpu(tmp_path, kind, rebatch):
-    """The port's FileCache (per-file sample, batch 2) against gan_tpu's
+    """The port's FileCache (the CLIs' rows, batch 2) against gan_tpu's
     (``build_*_cache([p])[0]``, as its CLIs build it) over the same PNGs and
     the same permutation, batch by batch and byte for byte; ``rebatched``
     walks both through ``iter_uint8_batches`` at another batch size."""
     paths = _pngs(tmp_path, kind)
     sample, jax_sample, build, _ = _samplers(kind, True)
     shape = sample(paths[0]).shape
-    port = loader.FileCache(paths, sample, shape, 2)
+    port = loader.FileCache(paths, _rows(kind, True), 2)
     ref = jax_loader.FileCache(paths, jax_sample, shape, 2)
     assert port.shape == ref.shape and port.nbytes == ref.nbytes and len(port) == len(ref)
     order = np.random.default_rng(4).permutation(len(paths))
@@ -109,12 +118,13 @@ def test_host_or_file_cache_decodes_or_streams(tmp_path, capsys, mode):
     paths = _pngs(tmp_path, "pix2pix", n=3)
     sample, _, build, _ = _samplers("pix2pix", True)
     shape = sample(paths[0]).shape
-    cache = loader.host_or_file_cache(paths, sample, shape, 2, mode)
+    rows = _rows("pix2pix", True)
+    cache = loader.host_or_file_cache(paths, rows, 2, mode)
     out = capsys.readouterr().out
     if mode == "on":
         assert isinstance(cache, np.ndarray) and "streaming" not in out
         np.testing.assert_array_equal(cache, build(paths))
-        assert loader.host_or_file_cache([], sample, shape, 2, mode).shape == (0, *shape)
+        assert loader.host_or_file_cache([], rows, 2, mode).shape == (0, *shape)
     else:
         assert isinstance(cache, loader.FileCache) and cache.shape == (3, *shape)
         assert "Host cache disabled for 3 files — streaming from disk." in out
@@ -223,12 +233,13 @@ def test_prefetch_iter_releases_its_producer(how):
 
 def test_filecache_epoch_threads_end_with_the_epoch(tmp_path):
     """A FileCache starts no thread until its epoch's first batch, and its
-    pool and producer end when the epoch is exhausted, closed mid-way or
-    fails; a decode error re-raises at the consumer."""
+    producer and the rows' pool end when the epoch is exhausted, closed
+    mid-way or fails; a decode error re-raises at the consumer."""
     paths = _pngs(tmp_path, "cyclegan", n=5)
-    sample = _samplers("cyclegan", False)[0]
+    rows = _rows("cyclegan", False)
+    sample = rows.sample
     before = set(threading.enumerate())
-    fc = loader.FileCache(paths, sample, sample(paths[0]).shape, 2)
+    fc = loader.FileCache(paths, rows, 2)
     epoch = fc.epoch()
     assert set(threading.enumerate()) == before
     assert [len(b) for b in epoch] == [2, 2, 1]
@@ -244,5 +255,5 @@ def test_filecache_epoch_threads_end_with_the_epoch(tmp_path):
         return sample(path)
 
     with pytest.raises(OSError, match="truncated file"):
-        list(loader.FileCache(paths, fails, sample(paths[0]).shape, 2).epoch())
+        list(loader.FileCache(paths, pipeline.Rows(fails, rows.shape), 2).epoch())
     assert set(threading.enumerate()) == before

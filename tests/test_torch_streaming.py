@@ -16,6 +16,7 @@ resident graph epoch. This file imports no jax:
 import glob
 import json
 import os
+import re
 import threading
 
 import numpy as np
@@ -49,8 +50,8 @@ EPOCHS = ((0, True), (0, False), (1, False))
 
 
 def _sets(root, kind: str, size: int = SIZE, seed: int = 5):
-    """Seeded PNGs of each set; returns {set: [paths]} and the per-file
-    sample function of (path, train)."""
+    """Seeded PNGs of each set; returns {set: [paths]} and ``rows(train)``,
+    the split's :class:`pipeline.Rows` (the native decoder)."""
     rng = np.random.default_rng(seed)
     shape = (size + 8, 2 * size + 8) if kind == "pix2pix" else (size + 8, size + 4)
     sets = {}
@@ -62,23 +63,20 @@ def _sets(root, kind: str, size: int = SIZE, seed: int = 5):
             Image.fromarray(rng.integers(0, 256, shape, np.uint8), "L").save(path)
             sets[name].append(path)
     if kind == "pix2pix":
-        sample = lambda p, train: pipeline.pix2pix_sample(p, img_size=size, channels=1,
-                                                          orient="left", train=train)
+        rows = lambda train: pipeline.pix2pix_rows(img_size=size, channels=1, orient="left",
+                                                   train=train)
     else:
-        sample = lambda p, train: pipeline.cyclegan_sample(p, img_size=size, channels=1,
-                                                           train=train)
-    return sets, sample
+        rows = lambda train: pipeline.cyclegan_rows(img_size=size, channels=1, train=train)
+    return sets, rows
 
 
-def _groups(kind: str, sets: dict, sample, source: str, batch: int = 2):
+def _groups(kind: str, sets: dict, rows, source: str, batch: int = 2):
     """(train caches, val caches) on the host: decoded arrays, or FileCaches
     of the same files."""
     out = {}
     for name, paths in sets.items():
-        train = name.startswith("train")
-        rows = np.stack([sample(p, train) for p in paths])
-        out[name] = rows if source == "array" else FileCache(
-            paths, lambda p, train=train: sample(p, train), rows.shape[1:], batch)
+        split = rows(name.startswith("train"))
+        out[name] = split(paths) if source == "array" else FileCache(paths, split, batch)
     if kind == "pix2pix":
         return (out["train"],), (out["val"],)
     return (out["train_x"], out["train_y"]), (out["val_x"], out["val_y"])
@@ -98,13 +96,13 @@ def resident_runs(tmp_path_factory):
 
     def get(kind):
         if kind not in runs:
-            sets, sample = _sets(tmp_path_factory.mktemp(kind), kind)
+            sets, rows = _sets(tmp_path_factory.mktemp(kind), kind)
             resident = _trainer(kind)
             device = tuple(_on_device(g, resident.device)
-                           for g in _groups(kind, sets, sample, "array"))
+                           for g in _groups(kind, sets, rows, "array"))
             losses = [resident.run_epoch(*device[1 - training], epoch, training=training)
                       for epoch, training in EPOCHS]
-            runs[kind] = sets, sample, resident, losses
+            runs[kind] = sets, rows, resident, losses
         return runs[kind]
 
     return get
@@ -118,8 +116,8 @@ def test_streamed_epoch_equals_the_resident_epoch(resident_runs, kind, source):
     parameter and every Adam moment bit for bit. The stream's buffers are
     made once per (train or val, batch shapes) and kept across epochs, and
     no thread outlives an epoch."""
-    sets, sample, resident, want = resident_runs(kind)
-    host = _groups(kind, sets, sample, source)
+    sets, rows, resident, want = resident_runs(kind)
+    host = _groups(kind, sets, rows, source)
     streamed = _trainer(kind)
     before = set(threading.enumerate())
     got = [streamed.run_epoch(*host[1 - training], epoch, training=training)
@@ -135,20 +133,18 @@ def test_streamed_epoch_equals_the_resident_epoch(resident_runs, kind, source):
 
 
 def test_a_failing_file_ends_the_streamed_epoch_and_its_threads(tmp_path):
-    """A decode error in the third file raises from ``run_epoch`` and leaves
-    no thread running."""
-    sets, sample = _sets(tmp_path, "pix2pix")
+    """A file the decoder refuses (the third, cut short) raises from
+    ``run_epoch``, naming it, and leaves no thread running."""
+    sets, rows = _sets(tmp_path, "pix2pix")
     paths = sets["train"]
-
-    def flaky(path):
-        if path == paths[2]:
-            raise OSError(f"cannot decode {path}")
-        return sample(path, True)
-
-    cache = FileCache(paths, flaky, (2, SIZE + 30, SIZE + 30, 1), 2)
+    with open(paths[2], "rb") as f:
+        head = f.read(100)
+    with open(paths[2], "wb") as f:
+        f.write(head)
+    cache = FileCache(paths, rows(True), 2)
     trainer = _trainer("pix2pix")
     before = set(threading.enumerate())
-    with pytest.raises(OSError, match="cannot decode"):
+    with pytest.raises(OSError, match=re.escape(paths[2])):
         trainer.run_epoch(cache, 0, training=True)
     assert set(threading.enumerate()) == before
 
@@ -272,10 +268,10 @@ def test_streamed_graph_epoch_matches_the_resident_graph_epoch(cuda_trainers, tm
     on the same bytes in the same order, so losses, parameters and Adam's
     state are equal bit for bit: a step that read a stale or the next batch
     from the stream's buffers would differ."""
-    sets, sample = _sets(tmp_path, kind, size=64)
-    host = _groups(kind, sets, sample, "files")
+    sets, rows = _sets(tmp_path, kind, size=64)
+    host = _groups(kind, sets, rows, "files")
     streamed, resident = cuda_trainers(kind), cuda_trainers(kind)
-    device = tuple(_on_device(g, resident.device) for g in _groups(kind, sets, sample, "array"))
+    device = tuple(_on_device(g, resident.device) for g in _groups(kind, sets, rows, "array"))
     for epoch in (0, 1):
         for group, training in ((0, True), (1, False)):
             got = streamed.run_epoch(*host[group], epoch, training=training)
