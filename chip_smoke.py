@@ -172,6 +172,29 @@ Phases, each printed; any failure raises and the script exits non-zero:
     chip_smoke as c, tempfile; c.tf32_off(); c.build.build();
     c.run_512(tempfile.mkdtemp(), 'card')"``.
 
+15. data parallelism (gan_tpu_torch.parallel). 15a: a group of one rank
+    over NCCL in this process; Pix2Pix at batch 32 (phase 10's data and
+    seed) and CycleGAN at batch 8 (phase 7's), one ``fit`` epoch each
+    through the DP path, equal to ``fit`` without replicas bit for bit
+    (losses, parameters, Adam's state), the full steps graph replays with
+    the all-reduces captured, launches counted on the card; then each
+    model's graph step with and without the group in turns. 15b: two
+    spawned ranks on the one card over gloo (the runner eager by the
+    backend rule): Pix2Pix at 256², depth 8, bf16, a global batch of 4
+    with cross-replica batch norm and injected dropout masks against one
+    process at batch 4; at a global batch of 2 with per-replica batch norm
+    (K1 and K2 at a batch of one, counted on the card) against the mean of
+    two batch-1 steps, and against itself on the plain path; its step time,
+    which measures no scaling; CycleGAN at a global batch of 2, one ``fit``
+    epoch with a zip tail, the ranks' parameter checksums equal. 15c: the
+    Pix2Pix CLI's path (``parallel.launch``, then the CLI's ``run`` on each
+    rank, with the figures and grids stubbed: no matplotlib on the card's
+    machine) at ``--num-devices`` min(cards, 4) over NCCL against one card,
+    pairs/s per card, where the machine has two cards or more; else it
+    prints that it did not run, and why. Alone, after the build:
+    ``python3 -c "import chip_smoke as c, tempfile; c.tf32_off();
+    c.build.build(); c.run_data_parallel(tempfile.mkdtemp(), 'card')"``.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Only phases 12 and 13 write PNGs, into
 temporary directories.
@@ -192,12 +215,16 @@ import tempfile
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
+from gan_tpu_torch import parallel
 from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
 from gan_tpu_torch.data import native, pipeline
 from gan_tpu_torch.data.augment import normalize_batch, paired_jitter_batch, single_jitter_batch
@@ -209,11 +236,13 @@ from gan_tpu_torch.ops import build, conv, kernels, norm
 from gan_tpu_torch.train import base
 from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
+from gan_tpu_torch.train.cyclegan_trainer import NETWORKS as NETWORKS_CYCLEGAN
 from gan_tpu_torch.train.cyclegan_trainer import (BATCHED_PASSES, UNBATCHED_PASSES,
                                                    CycleGANTrainer, batched_pass_max,
                                                    pass_widths)
 from gan_tpu_torch.tools import eval_quality
 from gan_tpu_torch.train.pix2pix_trainer import REMAT_FREE_PEAK, Pix2PixTrainer, use_remat
+from gan_tpu_torch.utils import silence
 
 IMG_SIZE = 256
 BATCH = 16          # generate_batched's chunk
@@ -2577,6 +2606,337 @@ def run_512(tmp: str, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+DP_RANKS = 2            # 15b: ranks sharing the one card over gloo
+DP_BATCH = 4            # 15b: Pix2Pix's global batch with cross-replica batch norm
+DP_CLI_EPOCHS = 2       # 15c: the second epoch's [perf] line is read
+# 15b: CycleGAN at a global batch of 2 over the 2 ranks: 2 full steps of a
+# row per rank and a zip tail of 1 X and 2 Y rows; val 1 full step and 1 row
+N_DP_X, N_DP_Y, N_DP_VAL = 5, 6, 3
+DP_TIMEOUT = timedelta(seconds=300)   # a 15b group that hangs fails
+
+
+def same_state(a, b) -> bool:
+    """Every parameter and Adam state tensor of two trainers equal, bit for bit."""
+    for name in a.nets:
+        if not all(torch.equal(p, q) for p, q in zip(a.params[name], b.params[name])):
+            return False
+        sa, sb = a.opts[name].state_dict()["state"], b.opts[name].state_dict()["state"]
+        if sa.keys() != sb.keys() or not all(torch.equal(v, sb[i][k]) for i, st in sa.items()
+                                             for k, v in st.items()):
+            return False
+    return True
+
+
+def dp_world_one(tmp: str, smi: str) -> dict:
+    """15a: Pix2Pix at batch 32 (phase 10's data and seed) and CycleGAN at
+    batch 8 (phase 7's), one ``fit`` epoch each through the data-parallel
+    path at a world of one over NCCL, in this process, against the same
+    ``fit`` without replicas: losses, parameters and Adam's state bit for
+    bit, the full steps as graph replays (the captured step holds the
+    group's all-reduces), launches counted on the card; then the graph step
+    of both in turns. Returns the launches of the DP fits."""
+    store = dist.FileStore(os.path.join(tmp, "nccl_store"), 1)
+    replicas = parallel.join(0, 1, torch.device("cuda", 0), store=store)
+    launches = {}
+    try:
+        pad = IMG_SIZE + 30
+        rng = np.random.default_rng(SEED + 8)
+        p2p = (rng.integers(0, 256, (N_P2P_TRAIN, 2, pad, pad, 1), dtype=np.uint8),
+               rng.integers(0, 256, (N_P2P_VAL, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8),
+               rng.integers(0, 256, (1, 2, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8))
+        rng = np.random.default_rng(SEED + 3)
+        cg = (rng.integers(0, 256, (N_TRAIN_X, pad, pad, 1), dtype=np.uint8),
+              rng.integers(0, 256, (N_TRAIN_Y, pad, pad, 1), dtype=np.uint8),
+              *(rng.integers(0, 256, (n, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
+                for n in (N_VAL, N_VAL, 1)))
+        # (model, batch, data, its train caches, trainer, parser, the data
+        # flags, train and val rows of the epoch)
+        runs = (("Pix2Pix", P2P_BATCH, p2p, 1, Pix2PixTrainer, parse_pix2pix,
+                 ["--data", tmp], N_P2P_TRAIN, N_P2P_VAL),
+                ("CycleGAN", TRAIN_BATCH, cg, 2, CycleGANTrainer, parse_cyclegan,
+                 ["--input-images", tmp, "--target-images", tmp],
+                 min(N_TRAIN_X, N_TRAIN_Y), N_VAL))
+        for what, batch, data, n_caches, cls, parse, first, n_train, n_val in runs:
+            cfg = parse([*first, "--output", tmp, "--train", "--epochs", "1", "--img-size",
+                         str(IMG_SIZE), "--batch-size", str(batch), "--dtype", "bf16",
+                         "--num-devices", "1"])
+            reset_memory()
+            single, dp = cls(cfg), cls(cfg, replicas)
+            offsets_from_seed(single)
+            offsets_from_seed(dp)
+            fits = {}
+            for label, trainer in (("single", single), ("dp", dp)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fits[label], counted = device_launches(lambda: trainer.fit(*data, tmp))
+                print(f"{what} fit, {label}: {time.perf_counter() - t0:.2f} s with the set-up; "
+                      f"runner {trainer.epoch_counts}; launches counted on the card {counted}")
+                if label == "dp":
+                    for name, n in counted.items():
+                        launches[name] = launches.get(name, 0) + n
+            _, _, want_epoch = epoch_plan_counts({}, {}, divmod(n_train, batch),
+                                                 divmod(n_val, batch))
+            equal = fits["single"] == fits["dp"] and same_state(single, dp)
+            print(f"{what} at a world of 1 over NCCL against no replicas: losses, parameters and "
+                  f"Adam's state {'equal bit for bit' if equal else 'DIFFER'}; runner "
+                  f"{dp.epoch_counts}, expected {want_epoch}")
+            if not equal:
+                raise AssertionError(f"{what}: the DP fit at a world of 1 differs from the fit")
+            if dp.epoch_counts != want_epoch or not dp.epoch_counts["replays"]:
+                raise AssertionError(f"{what}: the DP epoch did not run as graph replays")
+            caches = tuple(torch.from_numpy(a).to("cuda") for a in data[:n_caches])
+            rows = tuple(torch.arange(GRAPH_STEPS * batch, device="cuda").remainder(
+                c.shape[0]).view(GRAPH_STEPS, batch) for c in caches)
+            paths = {label: (lambda t=t: t._cached_epoch(caches, rows, 1, True), GRAPH_STEPS,
+                             contextlib.nullcontext) for label, t in (("dp", dp),
+                                                                      ("single", single))}
+            ms = timed_paths(paths, rounds=2, reps=3)
+            med = {label: float(np.median(v)) for label, v in ms.items()}
+            print(f"{what} graph step at batch {batch}, {smi}: DP at a world of 1 median "
+                  f"{med['dp']:.3f} ms (rounds {[round(r, 3) for r in ms['dp']]}), without "
+                  f"replicas {med['single']:.3f} ms (rounds "
+                  f"{[round(r, 3) for r in ms['single']]}); DP/single {med['dp'] / med['single']:.3f}")
+            del single, dp, caches, fits
+    finally:
+        parallel.leave(replicas)
+    return launches
+
+
+def _grads_err(got: dict, want: dict) -> dict:
+    return {k: _rel(torch.cat([g.flatten().float() for g in got[k]]),
+                    torch.cat([g.flatten().float() for g in want[k]])) for k in got}
+
+
+def dp_rank_checks(replicas, tmp: str) -> dict:
+    """15b on one of the ranks that share the card; returns what rank 0
+    reports and every rank's launches."""
+    out = {"launches": {}}
+    lead = replicas.rank == 0
+    r, w = replicas.rank, replicas.size
+    if not lead:
+        silence()
+
+    def count(fn):
+        result, counted = device_launches(fn)
+        for name, n in counted.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        return result, counted
+
+    def pix2pix(batch, cross):
+        cfg = parse_pix2pix(["--data", tmp, "--output", tmp, "--train", "--epochs", "1",
+                             "--img-size", str(IMG_SIZE), "--batch-size", str(batch), "--dtype",
+                             "bf16", "--bn-cross-replica", cross, "--num-devices", str(w)])
+        dp = Pix2PixTrainer(cfg, replicas)
+        single = Pix2PixTrainer(cfg, parallel.single(replicas.device)) if lead else None
+        for t in (dp, single):
+            if t is not None:
+                offsets_from_seed(t)
+        rng = np.random.default_rng(SEED + 15)
+        x, y = (torch.from_numpy(rng.uniform(-1, 1, (batch, IMG_SIZE, IMG_SIZE, 1))
+                                 .astype(np.float32)).to("cuda", torch.bfloat16)
+                for _ in range(2))
+        masks = dp._masks(dp.gen, torch.Generator(device="cuda").manual_seed(SEED + 16), batch)
+        b = dp.local_batch
+        mine = lambda m: [t[r * b:(r + 1) * b] for t in m]
+        return dp, single, x, y, masks, mine
+
+    # global batch 4 with cross-replica batch norm, against one process at batch 4
+    dp, single, x, y, masks, mine = pix2pix(DP_BATCH, "true")
+    (grads, losses), _ = count(lambda: dp.gradients(*mine([x, y]), masks=[mine(masks)],
+                                                    bn_group=dp.bn_group))
+    if lead:
+        want, want_losses = single.gradients(x, y, masks=[masks])
+        out["cross"] = (((losses - want_losses).abs() / want_losses.abs()).max().item(),
+                        _grads_err(grads, want))
+    del dp, single, grads
+
+    # global batch 2 with per-replica batch norm (K1 and K2 at a batch of one),
+    # against the mean of two batch-1 steps; then the DP step on the plain path
+    dp, single, x, y, masks, mine = pix2pix(2, "false")
+    step = lambda: dp.gradients(*mine([x, y]), masks=[mine(masks)])
+    (grads, losses), counted = count(step)
+    out["per_replica_launches"] = counted
+    with plain_path("plain"):
+        plain, plain_losses = step()
+    out["kernel_vs_plain"] = (((losses - plain_losses).abs() / plain_losses.abs()).max().item(),
+                              _grads_err(grads, plain))
+    if lead:
+        halves = [single.gradients(x[i:i + 1], y[i:i + 1], masks=[[m[i:i + 1] for m in masks]])
+                  for i in range(2)]
+        mean = {k: [(a + c) / 2 for a, c in zip(halves[0][0][k], halves[1][0][k])]
+                for k in grads}
+        mean_losses = (halves[0][1] + halves[1][1]) / 2
+        out["per_replica"] = (((losses - mean_losses).abs() / mean_losses.abs()).max().item(),
+                              _grads_err(grads, mean))
+    out["step_ms"] = median_ms(step, reps=3)
+    del dp, single, grads, plain
+
+    # a CycleGAN fit epoch at a global batch of 2, with a zip tail
+    cfg = parse_cyclegan(["--input-images", tmp, "--target-images", tmp, "--output", tmp,
+                          "--train", "--epochs", "1", "--img-size", str(IMG_SIZE),
+                          "--batch-size", "2", "--dtype", "bf16", "--num-devices", str(w)])
+    trainer = CycleGANTrainer(cfg, replicas)
+    offsets_from_seed(trainer)
+    rng = np.random.default_rng(SEED + 17)
+    pad = IMG_SIZE + 30
+    data = (rng.integers(0, 256, (N_DP_X, pad, pad, 1), dtype=np.uint8),
+            rng.integers(0, 256, (N_DP_Y, pad, pad, 1), dtype=np.uint8),
+            *(rng.integers(0, 256, (n, IMG_SIZE, IMG_SIZE, 1), dtype=np.uint8)
+              for n in (N_DP_VAL, N_DP_VAL, 1)))
+    (train_cost, val_cost), _ = count(lambda: trainer.fit(*data, os.path.join(tmp, "cyclegan")))
+    sums = torch.stack([torch.cat([p.detach().flatten() for p in trainer.params[k]]).double().sum()
+                        for k in NETWORKS_CYCLEGAN]).cpu()
+    high, low = sums.clone(), -sums
+    dist.all_reduce(high, op=dist.ReduceOp.MAX, group=replicas.group)
+    dist.all_reduce(low, op=dist.ReduceOp.MAX, group=replicas.group)
+    out["cyclegan"] = {"spread": (high + low).tolist(), "counts": dict(trainer.epoch_counts),
+                       "losses": [v[0] for d in (train_cost, val_cost) for v in d.values()]}
+    return out
+
+
+def _dp_rank(rank: int, tmp: str, size: int) -> None:
+    """A spawned 15b rank: both ranks on the one card, over gloo. Rank 0
+    makes sure of the kernel library (phase 2 built it; the name is a hash
+    of the sources) before the others load it."""
+    tf32_off()
+    store = dist.FileStore(os.path.join(tmp, "gloo_store"), size)
+    replicas = parallel.join(rank, size, torch.device("cuda", 0), store=store, backend="gloo",
+                             timeout=DP_TIMEOUT)
+    try:
+        if rank == 0:
+            build.build()
+        dist.barrier()
+        torch.save(dp_rank_checks(replicas, tmp), os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        parallel.leave(replicas)
+
+
+def dp_two_ranks(tmp: str, smi: str) -> dict:
+    """15b: two spawned ranks on the one card over gloo. Returns the launches
+    of both ranks' main-path runs."""
+    torch.multiprocessing.start_processes(_dp_rank, args=(tmp, DP_RANKS), nprocs=DP_RANKS,
+                                          start_method="spawn")
+    res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_RANKS)]
+    lead = res[0]
+    fmt = lambda d: {k: f"{v:.3e}" for k, v in d.items()}
+    ok = True
+    for key, what in (("cross", f"Pix2Pix, {DP_RANKS} ranks at a global batch of {DP_BATCH}, "
+                                "cross-replica batch norm, against one process at the batch"),
+                      ("per_replica", f"Pix2Pix, {DP_RANKS} ranks at a global batch of 2, "
+                                      "per-replica batch norm, against the mean of two "
+                                      "batch-1 steps"),
+                      ("kernel_vs_plain", "that per-replica DP step, kernel vs plain path")):
+        loss_err, grad_err = lead[key]
+        good = loss_err <= STEP_TOL["bf16"][0] and max(grad_err.values()) <= STEP_TOL["bf16"][1]
+        print(f"{what}: losses max relative error {loss_err:.3e} (tol {STEP_TOL['bf16'][0]:g}), "
+              f"gradients relative L2 error {fmt(grad_err)} (tol {STEP_TOL['bf16'][1]:g})")
+        ok &= good
+    per_rank = [x["per_replica_launches"] for x in res]
+    print(f"per-replica DP step launches counted on the card, by rank: {per_rank}")
+    print(f"per-replica DP step, rank 0: median {lead['step_ms']:.1f} ms, {smi}; not a scaling "
+          "number: two ranks share one card, and gloo stages every all-reduce through the host")
+    if not all(x[name] > 0 for x in per_rank for name in ("instance_norm_fwd",
+                                                          "instance_norm_bwd")):
+        raise AssertionError("K1 or K2 did not launch in the per-replica batch-norm step")
+    spread = [x["cyclegan"]["spread"] for x in res]
+    counts = [x["cyclegan"]["counts"] for x in res]
+    print(f"CycleGAN fit, {DP_RANKS} ranks at a global batch of 2 with a zip tail: parameter "
+          f"checksums, max − min over the ranks per network {spread[0]}; runner {counts}; "
+          f"losses finite {all(math.isfinite(v) for x in res for v in x['cyclegan']['losses'])}")
+    want = {"eager": 3, "captures": 0, "replays": 0, "eager_by_backend": 3}
+    if any(v != 0.0 for v in spread[0]) or any(c != want for c in counts):
+        raise AssertionError("the CycleGAN ranks parted, or the runner did not run eagerly by "
+                             "the gloo rule")
+    if not all(math.isfinite(v) for x in res for v in x["cyclegan"]["losses"]):
+        raise AssertionError("a CycleGAN DP loss is not finite")
+    if not ok:
+        raise AssertionError("a DP step disagrees with its reference")
+    launches = {}
+    for x in res:
+        for name, n in x["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def perf_rate(stdout: str) -> float:
+    """images/sec of the last ``[perf]`` line of a run under GAN_TPU_PERF=1."""
+    lines = [line for line in stdout.splitlines() if line.startswith("[perf]")]
+    if not lines:
+        raise AssertionError("the run printed no [perf] line")
+    return float(lines[-1].split(": ")[1].split()[0])
+
+
+def _cli_rank(cfg, replicas) -> None:
+    """A rank of 15c's run: the Pix2Pix CLI's ``run``, with its loss
+    figures and image grids stubbed (the card's machine has no
+    matplotlib)."""
+    from gan_tpu_torch import pix2pix
+    from gan_tpu_torch.train import pix2pix_trainer
+
+    pix2pix.write_loss_figs = lambda *args, **kwargs: None
+    pix2pix_trainer.save_image_grid = lambda *args, **kwargs: None
+    pix2pix.run(cfg, replicas)
+
+
+def cli_main(argv: list) -> None:
+    """The Pix2Pix CLI's ``main`` on ``argv`` through ``parallel.launch``
+    (which spawns the ranks that ``--num-devices`` asks for), each rank
+    ``_cli_rank``."""
+    parallel.launch(_cli_rank, parse_pix2pix(argv))
+
+
+def dp_cli(tmp: str, smi: str) -> None:
+    """15c: the Pix2Pix CLI path with --num-devices N = min(cards, 4) over
+    NCCL, against N = 1, on seeded noise PNGs, each in a process of its own
+    (``cli_main``), where the machine has two cards or more; on one card it
+    says that it did not run, and why."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"15c did not run: the machine has count {cards} card; NCCL at 2-4 ranks needs as "
+              "many cards")
+        return
+    n = min(cards, 4)
+    data = os.path.join(tmp, "pairs")
+    write_noise_pngs(data, 8 * P2P_BATCH + 2 * P2P_BATCH, (IMG_SIZE, 2 * IMG_SIZE), SEED + 18)
+    rates = {}
+    for ranks in (1, n):
+        argv = ["--data", data, "--output", os.path.join(tmp, f"cli_{ranks}"), "--train",
+                "--epochs", str(DP_CLI_EPOCHS), "--img-size", str(IMG_SIZE), "--batch-size",
+                str(P2P_BATCH * ranks), "--dtype", "bf16", "--logging", "false",
+                "--num-devices", str(ranks), "--test-img", "1"]
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.cli_main({argv!r})"],
+            capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, GAN_TPU_PERF="1"))
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI at --num-devices {ranks} failed:\n{proc.stderr[-4000:]}")
+        rates[ranks] = perf_rate(proc.stdout)
+    print(f"Pix2Pix CLI, {P2P_BATCH} pairs per card, epoch {DP_CLI_EPOCHS}, {smi}: "
+          f"--num-devices 1 {rates[1]:.1f} pairs/s; --num-devices {n} {rates[n]:.1f} pairs/s, "
+          f"{rates[n] / n:.1f} per card ({rates[n] / n / rates[1]:.2f} of one card's)")
+
+
+def run_data_parallel(tmp: str, smi: str) -> dict:
+    """Phase 15. Returns the kernel launch counts of its main-path runs."""
+    launches = {}
+    phase(f"15a. data parallelism at a world of 1 over NCCL: Pix2Pix batch {P2P_BATCH} and "
+          f"CycleGAN batch {TRAIN_BATCH} fit against fit without replicas")
+    for name, n in dp_world_one(tmp, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    phase(f"15b. {DP_RANKS} ranks on the one card over gloo (device count "
+          f"{torch.cuda.device_count()})")
+    for name, n in dp_two_ranks(tmp, smi).items():
+        launches[name] = launches.get(name, 0) + n
+    phase("15c. NCCL over min(cards, 4) ranks through the CLI")
+    dp_cli(tmp, smi)
+    print(f"phase 15 launches, counted on the card: {launches}")
+    if not all(launches.get(name, 0) > 0 for name in SOURCES):
+        raise AssertionError("a kernel of phase 15's paths was never launched")
+    return launches
+
+
 def tf32_off() -> None:
     """fp32 convs and matmuls in full fp32, for the fp32 comparisons."""
     torch.backends.cudnn.allow_tf32 = False
@@ -2685,6 +3045,10 @@ def main() -> int:
           "predict, the remat frontier")
     with tempfile.TemporaryDirectory() as tmp:
         add(run_512(tmp, smi))
+
+    phase("15. data parallelism: NCCL at a world of 1, two gloo ranks on the card, the CLI")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_data_parallel(tmp, smi))
 
     print(f"\nlaunches on the main paths, counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):

@@ -2,8 +2,9 @@
 
 It sits beside ``gan_tpu`` (the JAX reference it is held against) and mirrors
 its layout: ``ops`` (convs, norms and the CUDA kernels' wrappers), ``models``,
-``data``, ``train``, ``utils``, ``config``, the ``pix2pix`` and ``cycle_gan``
-CLIs, and ``quality`` with ``tools.eval_quality``. It imports torch and never
+``data``, ``train``, ``parallel`` (data parallelism on torch.distributed),
+``utils``, ``config``, the ``pix2pix`` and ``cycle_gan`` CLIs, and ``quality``
+with ``tools.eval_quality``. It imports torch and never
 jax, and nothing of ``gan_tpu``.
 
 It runs Pix2Pix and CycleGAN, ``--train`` and ``--predict``, and scores

@@ -107,15 +107,6 @@ class CycleGANConfig(BaseConfig):
     lam: int = 10
 
 
-def refuse_unported(cfg: BaseConfig) -> None:
-    """Exit when --train asks for data parallelism (``--num-devices`` > 1),
-    which is not ported yet. ``--host-cache``, ``--device-cache``,
-    ``--resume``, ``--checkpoint-every`` and ``--remat`` are ported."""
-    if cfg.train and cfg.num_devices > 1:
-        raise SystemExit("gan_tpu_torch: --num-devices > 1 with --train is not "
-                         "ported yet; train with gan_tpu's CLI or drop the flag")
-
-
 def _add_common(p: argparse.ArgumentParser, argv) -> None:
     p.add_argument("--output", type=str, required=True, help="path to output results")
     p.add_argument("--img-size", type=int, default=256, help="image size h,w")
@@ -148,7 +139,8 @@ def _add_common(p: argparse.ArgumentParser, argv) -> None:
                    help="device-resident training caches (auto: when they fit in 0.4 of "
                         "the device's memory; off: stream batches from host memory)")
     p.add_argument("--bn-cross-replica", type=str, default="false", choices=["true", "false"],
-                   help="gan_tpu training flag; parsed, unused by the port")
+                   help="data-parallel training: batch-norm statistics over every "
+                        "replica's batch (default: each replica's own)")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint directory to resume training from")
     p.add_argument("--num-devices", type=int, default=0,

@@ -27,15 +27,26 @@ memory. Files are decoded by the native PNG decoder
 every file with PIL. ``--device-cache off`` (or ``auto`` when the caches exceed 0.4 of
 the card's memory) keeps decoded caches on the host and streams their
 batches to the card each step. Either way the epochs equal the resident
-ones. ``--num-devices`` > 1 is not ported yet: with ``--train`` it exits
-with an error. ``--remat on`` checkpoints every U-Net block of the
+ones. ``--remat on`` checkpoints every U-Net block of the
 generator(s) while training (``torch.utils.checkpoint``; the backward
 recomputes each block), and ``auto`` does so only where training would not
 fit in the card's memory without it
 (gan_tpu_torch.train.pix2pix_trainer.use_remat); config.json keeps the flag
-as given. ``--use-pallas`` and ``--bn-cross-replica`` are parsed and
-written to config.json but change nothing here: the port always runs its
-CUDA kernels on the card.
+as given. ``--use-pallas`` is parsed and written to config.json but
+changes nothing here: the port always runs its CUDA kernels on the card,
+and nor does ``--bn-cross-replica``: CycleGAN's norms are instance norms.
+
+Data parallelism (gan_tpu_torch.parallel): ``--train --num-devices N``
+trains N replicas, one process per card (one per CPU process on the CPU),
+each global batch of ``--batch-size`` split over them and the gradients
+averaged; the CLI spawns the N ranks itself, or under ``torchrun
+--nproc-per-node N -m gan_tpu_torch.cycle_gan ...`` each process is a
+rank. ``--num-devices 0`` takes every card (one process on the CPU), as
+many as divide the batch. A batch that N does not divide, or an N that the
+cards or torchrun's ``WORLD_SIZE`` cannot give, exits with an error. Rank 0
+makes the run directory and alone writes the logs, metrics, figures,
+samples and checkpoints; every rank restores ``--resume``. ``--predict``
+runs on one device.
 """
 
 from __future__ import annotations
@@ -43,23 +54,34 @@ from __future__ import annotations
 import os
 import sys
 
-from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, refuse_unported
+from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan
+from gan_tpu_torch.data import native
 from gan_tpu_torch.data.loader import host_or_file_cache
 from gan_tpu_torch.data.pipeline import cyclegan_rows
 from gan_tpu_torch.data.split import cyclegan_split, list_images
+from gan_tpu_torch.parallel import Replicas, launch
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
-from gan_tpu_torch.utils import dump_json, make_run_dirs, redirect_logging, write_loss_figs
+from gan_tpu_torch.utils import (dump_json, make_run_dirs, redirect_logging, silence,
+                                 write_loss_figs)
 
 
 def main(cfg: CycleGANConfig) -> None:
-    refuse_unported(cfg)
-    dirs = make_run_dirs(cfg.output)
-    if cfg.logging == "true":
+    launch(run, cfg)
+
+
+def run(cfg: CycleGANConfig, replicas: Replicas) -> None:
+    """The CLI on one replica (all of it without data parallelism)."""
+    lead = replicas.rank == 0
+    dirs = replicas.broadcast(make_run_dirs(cfg.output) if lead else None)
+    if not lead:
+        silence()
+    elif cfg.logging == "true":
         redirect_logging(dirs)
 
-    trainer = CycleGANTrainer(cfg)
-    cfg.dump(os.path.join(dirs.logs, "config.json"))
+    trainer = CycleGANTrainer(cfg, replicas)
+    if lead:
+        cfg.dump(os.path.join(dirs.logs, "config.json"))
 
     print("\nReading in and processing images.\n", flush=True)
     contents_x = list_images(cfg.input_images)
@@ -69,8 +91,10 @@ def main(cfg: CycleGANConfig) -> None:
     def cache(directory, names, train, allow_stream=False):
         """A decoded uint8 host cache, or a FileCache that streams from the
         files when the decoded corpus would not fit in host memory or under
-        --host-cache off (gan_tpu's cycle_gan.py)."""
-        rows = cyclegan_rows(img_size=cfg.img_size, channels=cfg.n_channels, train=train)
+        --host-cache off (gan_tpu's cycle_gan.py). The ranks on a host share
+        its cores for the decode."""
+        rows = cyclegan_rows(img_size=cfg.img_size, channels=cfg.n_channels, train=train,
+                             threads=native.default_threads(replicas.local_size))
         return host_or_file_cache([os.path.join(directory, n) for n in names], rows,
                                   cfg.batch_size, cfg.host_cache if allow_stream else "on")
 
@@ -95,9 +119,9 @@ def main(cfg: CycleGANConfig) -> None:
         test_cache = cache(cfg.input_images, test_n, train=False)   # small: always in memory
 
         manager = (CheckpointManager(dirs.checkpoints, max_to_keep=3)
-                   if cfg.save_weights == "true" else None)
+                   if cfg.save_weights == "true" and lead else None)
         start_epoch = 0
-        if cfg.resume:
+        if cfg.resume:   # on every rank
             src = CheckpointManager(latest_checkpoint_dir(cfg.resume))
             start_epoch = src.latest_epoch() or 0
             trainer.load_state(src.restore(map_location="cpu"))
@@ -105,16 +129,17 @@ def main(cfg: CycleGANConfig) -> None:
         train_metrics, val_metrics = trainer.fit(train_x, train_y, val_x, val_y, test_cache,
                                                  dirs.root, checkpoint_manager=manager,
                                                  start_epoch=start_epoch)
-
-        os.makedirs(dirs.final_test_imgs, exist_ok=True)
-        test_norm = test_cache.astype("float32") / 127.5 - 1.0
-        for i in range(test_norm.shape[0]):
-            trainer.generate_image(test_norm[i:i + 1],
-                                   os.path.join(dirs.final_test_imgs, f"img{i}.png"),
-                                   key_index=i)
-        dump_json(train_metrics, os.path.join(dirs.logs, "train_metrics.json"))
-        dump_json(val_metrics, os.path.join(dirs.logs, "val_metrics.json"))
-        write_loss_figs(train_metrics, val_metrics, prefix="CycleGAN ", output_path=dirs.figs)
+        if lead:
+            os.makedirs(dirs.final_test_imgs, exist_ok=True)
+            test_norm = test_cache.astype("float32") / 127.5 - 1.0
+            for i in range(test_norm.shape[0]):
+                trainer.generate_image(test_norm[i:i + 1],
+                                       os.path.join(dirs.final_test_imgs, f"img{i}.png"),
+                                       key_index=i)
+            dump_json(train_metrics, os.path.join(dirs.logs, "train_metrics.json"))
+            dump_json(val_metrics, os.path.join(dirs.logs, "val_metrics.json"))
+            write_loss_figs(train_metrics, val_metrics, prefix="CycleGAN ",
+                            output_path=dirs.figs)
 
     print("Done.")
 

@@ -63,10 +63,11 @@ def enabled() -> bool:
     return os.environ.get("GAN_TPU_NATIVE") != "0"
 
 
-def default_threads() -> int:
+def default_threads(share: int = 1) -> int:
     """Decode threads per call: every core this process may run on (its CPU
     affinity, which a container's CPU set narrows; ``os.cpu_count()`` where
-    the platform does not report it). On the H100's 8-core host
+    the platform does not report it), divided among ``share`` processes
+    that decode on the same host (data-parallel ranks). On the H100's 8-core host
     (chip_smoke.py phase 13) 8 threads decoded the reference corpus's
     1280x512 pair files 11.3% faster than 7, where decode is what a
     streamed epoch waits for. At 512x256 files the readings went both ways
@@ -75,9 +76,10 @@ def default_threads() -> int:
     The decode holds no GIL, so the main thread that launches the graph
     replays competes for a core only, not for the interpreter."""
     try:
-        return len(os.sched_getaffinity(0)) or 1
+        cores = len(os.sched_getaffinity(0)) or 1
     except AttributeError:   # no affinity on this platform
-        return os.cpu_count() or 1
+        cores = os.cpu_count() or 1
+    return max(1, cores // share)
 
 
 def compiler() -> str:

@@ -59,7 +59,9 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(1.0 + 0.02 * torch.randn(c, generator=generator))
         self.offset = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x, *, per_sample: bool = False):
+    def forward(self, x, *, per_sample: bool = False, group=None):
+        """``group`` changes nothing either: instance norm has no
+        cross-replica form."""
         return instance_norm(x, self.scale, self.offset)
 
 
@@ -72,14 +74,23 @@ class BatchNorm(nn.Module):
     over (H, W) with batch norm's epsilon, so it runs K1. A batch of one is
     the same case. Otherwise the statistics span the batch: on the card
     through ``F.batch_norm`` (XLA's in gan_tpu, no Pallas kernel), on the CPU
-    through the plain version."""
+    through the plain version.
+
+    ``group`` (cross-replica batch norm, ``--bn-cross-replica true`` over
+    several replicas) takes the statistics over every replica's batch
+    through the plain version's all-reduced moments, whatever the
+    replica's batch: at a batch of one they span W images, so that case is
+    no instance norm then. Per-replica statistics (no group) are each
+    replica's own batch's, so a replica's batch of one runs K1."""
 
     def __init__(self, c: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(c))
         self.beta = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x, *, per_sample: bool = False):
+    def forward(self, x, *, per_sample: bool = False, group=None):
+        if group is not None:
+            return batch_norm(x, self.gamma, self.beta, group=group)
         if per_sample or x.shape[0] == 1:
             return instance_norm(x, self.gamma, self.beta, eps=BN_EPS)
         if x.device.type == "cuda":
@@ -104,11 +115,11 @@ class Downsample(nn.Module):
         self.conv = conv_kernel_init((c_out, c_in, 4, 4), generator)
         self.norm = norm_layer(norm, c_out, generator) if apply_norm else None
 
-    def forward(self, x, *, compute_dtype=None, per_sample: bool = False):
+    def forward(self, x, *, compute_dtype=None, per_sample: bool = False, bn_group=None):
         if self.norm is None:   # the stem: conv and LeakyReLU in one kernel
             return stem_conv(x, self.conv, compute_dtype=compute_dtype)
         x = conv2d_down(x, self.conv, compute_dtype=compute_dtype)
-        return activation(self.norm(x, per_sample=per_sample), "leaky_relu")
+        return activation(self.norm(x, per_sample=per_sample, group=bn_group), "leaky_relu")
 
 
 class Upsample(nn.Module):
@@ -118,8 +129,9 @@ class Upsample(nn.Module):
         self.conv = conv_kernel_init((c_in, c_out, 4, 4), generator)
         self.norm = norm_layer(norm, c_out, generator)
 
-    def forward(self, x, *, compute_dtype=None, drop_mask=None, per_sample: bool = False):
+    def forward(self, x, *, compute_dtype=None, drop_mask=None, per_sample: bool = False,
+                bn_group=None):
         x = conv2d_transpose_up(x, self.conv, compute_dtype=compute_dtype)
-        x = self.norm(x, per_sample=per_sample)
+        x = self.norm(x, per_sample=per_sample, group=bn_group)
         x = dropout(x, DROP_RATE, mask=drop_mask)
         return activation(x, "relu")

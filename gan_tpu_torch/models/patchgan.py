@@ -47,7 +47,7 @@ class PatchGANDiscriminator(nn.Module):
         self.last = _Last(512, generator)
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, x, y=None, *, compute_dtype=None):
+    def forward(self, x, y=None, *, compute_dtype=None, bn_group=None):
         """x: (N, H, W, C); y: the target image, given iff ``target`` →
         patch logits (N, H/8 − 2, W/8 − 2, 1) in fp32."""
         if self.target != (y is not None):
@@ -58,9 +58,9 @@ class PatchGANDiscriminator(nn.Module):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         h = self.down_0(x, compute_dtype=compute_dtype)
-        h = self.down_1(h, compute_dtype=compute_dtype)
-        h = self.down_2(h, compute_dtype=compute_dtype)
+        h = self.down_1(h, compute_dtype=compute_dtype, bn_group=bn_group)
+        h = self.down_2(h, compute_dtype=compute_dtype, bn_group=bn_group)
         h = conv2d_valid(h, self.conv512, pad=1, compute_dtype=compute_dtype)
-        h = activation(self.norm512(h), "leaky_relu")
+        h = activation(self.norm512(h, group=bn_group), "leaky_relu")
         h = conv2d_valid(h, self.last.conv, pad=1, compute_dtype=compute_dtype)
         return (h + self.last.bias.to(h.dtype)).float()

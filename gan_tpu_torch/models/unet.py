@@ -14,7 +14,10 @@ parameter pytree (see gan_tpu_torch.transplant). Input and output are NHWC.
 every down and up block, the stem included, through non-reentrant
 ``torch.utils.checkpoint`` while autograd records: a block keeps only its
 input and output, and the backward recomputes the rest (its conv, S, K1).
-The head is not wrapped, as in gan_tpu. Dropout masks are drawn before any
+The head is not wrapped, as in gan_tpu.
+
+``bn_group`` (gan_tpu's ``bn_axis_name``) reaches every batch norm: the
+process group whose replicas' moments it all-reduces, or None. Dropout masks are drawn before any
 block runs, so a recomputed block reads the mask its forward read; a mask
 drawn inside the block would be drawn again, and differ, since
 ``preserve_rng_state`` does not restore an explicit ``torch.Generator``.
@@ -84,7 +87,7 @@ class UNetGenerator(nn.Module):
 
     def forward(self, x, *, generator: torch.Generator | None = None,
                 masks: Sequence[torch.Tensor] | None = None, compute_dtype=None,
-                per_sample: bool = False):
+                per_sample: bool = False, bn_group=None):
         """x: (N, H, W, C_in) -> (N, H, W, out_channels) fp32 in [-1, 1].
 
         Dropout takes ``masks`` (one keep-mask per dropout site, in call
@@ -103,8 +106,10 @@ class UNetGenerator(nn.Module):
             module = getattr(self, name)
             if remat:   # no global RNG state to keep: the step draws from none
                 return checkpoint(module, h, use_reentrant=False, preserve_rng_state=False,
-                                  compute_dtype=compute_dtype, per_sample=per_sample, **kwargs)
-            return module(h, compute_dtype=compute_dtype, per_sample=per_sample, **kwargs)
+                                  compute_dtype=compute_dtype, per_sample=per_sample,
+                                  bn_group=bn_group, **kwargs)
+            return module(h, compute_dtype=compute_dtype, per_sample=per_sample,
+                          bn_group=bn_group, **kwargs)
 
         skips = []
         h = x

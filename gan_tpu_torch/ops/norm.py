@@ -9,7 +9,11 @@ activation epilogue that the fused kernel carries
 Batch norm (Pix2Pix): moments over (N, H, W) per channel, Keras' epsilon
 1e-3, the same fp32 two-pass form, and no running statistics: the reference
 calls every network in training mode, so batch statistics are always used.
-Cross-replica statistics (``--bn-cross-replica``) come with data parallelism.
+Over data-parallel replicas the statistics are each replica's own by
+default; with a process group (``--bn-cross-replica true``) the moments span
+every replica's batch: the fp32 mean all-reduced, then the variance about
+it, two ``all_reduce`` calls per site with autograd through them (gan_tpu's
+``pmean`` of the moments), so the two-pass form stays.
 
 This is the reference the CUDA kernels (gan_tpu_torch/ops/kernels.py) are
 held against, and the version a CPU tensor runs: on the CPU autograd takes
@@ -20,6 +24,8 @@ writes that gradient out as the backward kernel (K2) computes it.
 from __future__ import annotations
 
 import torch
+
+from gan_tpu_torch.parallel.mesh import replica_mean
 
 IN_EPS = 1e-5       # reference InstanceNormalization epsilon
 BN_EPS = 1e-3       # Keras BatchNormalization default
@@ -51,9 +57,16 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor, *,
 
 
 def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-               eps: float = BN_EPS) -> torch.Tensor:
-    """x: (N, H, W, C); gamma, beta: (C,). Statistics over the whole batch."""
-    return _normalize(x, gamma, beta, (0, 1, 2), eps).to(x.dtype)
+               eps: float = BN_EPS, group=None) -> torch.Tensor:
+    """x: (N, H, W, C); gamma, beta: (C,). Statistics over the whole batch,
+    or with ``group`` (a process group of replicas whose batches are of one
+    size) over every replica's batch."""
+    if group is None:
+        return _normalize(x, gamma, beta, (0, 1, 2), eps).to(x.dtype)
+    xf = x.float()
+    mean = replica_mean(xf.mean(dim=(0, 1, 2), keepdim=True), group)
+    var = replica_mean((xf - mean).square().mean(dim=(0, 1, 2), keepdim=True), group)
+    return ((xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()).to(x.dtype)
 
 
 def instance_norm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,

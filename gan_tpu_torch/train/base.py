@@ -42,6 +42,24 @@ the device that ``prepare`` fills before each step; the partial last batch
 runs eagerly. So a streamed epoch equals the resident one bit for bit on the
 CPU.
 
+**Data parallelism** (gan_tpu_torch.parallel, gan_tpu's shard_map steps): a
+trainer built with :class:`~gan_tpu_torch.parallel.Replicas` of W > 1 is one
+replica of W, one process each, in one process group. Its parameters and
+Adam's state start equal (the same seeded init, or ``--resume`` on every
+rank) and stay equal: after each gradient group's ``autograd.grad`` its
+flat gradients are averaged over the replicas by one bucketed
+``all_reduce``, and so are the step's losses, before any update (no
+``DistributedDataParallel``, whose reducer fires on ``.backward()``). Each
+full global batch of B rows splits into ``local_batch`` = B / W rows per
+replica, taken from the replica's stripe of a resident cache (rows r, r +
+W, ...; :class:`Stripe`) or decoded by it from a streamed one, and a full
+step's draws are keyed by the rank as well (gan_tpu folds the device index
+into each step's key). The partial last batch runs whole on every replica
+from the host cache, with rank-free draws (gan_tpu's device stream 0) and
+per-replica batch norm, and its gradients are averaged too, so that the
+replicas cannot drift bit by bit. At W = 1 a group changes no bit: the
+average of one replica is a copy, and the draws carry no rank.
+
 **Predict** walks an ndarray or a FileCache in chunks of 64 under a prefetch
 thread that decodes the next chunk. The main thread launches a chunk's
 inference and its copy to pinned host memory, then writes the previous
@@ -52,6 +70,7 @@ CUDA call and host memory stays bounded at any corpus size.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
 import weakref
@@ -62,8 +81,9 @@ import torch
 
 from gan_tpu_torch.data import loader
 from gan_tpu_torch.data.augment import normalize_batch
-from gan_tpu_torch.device import default_device, torch_dtype
+from gan_tpu_torch.device import torch_dtype
 from gan_tpu_torch.models.blocks import keep_mask
+from gan_tpu_torch.parallel import Replicas, stripe_rows
 from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.optim import adam
 from gan_tpu_torch.utils.grids import save_image_grid
@@ -117,15 +137,34 @@ class StepDraws(NamedTuple):
         return [m for app in self.masks for m in app] + [t for j in self.jitter for t in j]
 
 
+class Stripe(NamedTuple):
+    """A resident cache of a data-parallel replica: its stripe on the device
+    (``local``: rows rank, rank + W, ... of ``host``) and the whole host
+    cache, from which the partial last batch takes its rows."""
+    local: torch.Tensor
+    host: np.ndarray
+
+    @property
+    def shape(self) -> tuple:
+        return self.host.shape
+
+
 class GANTrainer:
     """``nets`` maps network names to modules; ``groups`` partitions the
     names into gradient groups, in the order the step takes their gradients;
-    ``sampler`` names the generator that ``generate`` runs."""
+    ``sampler`` names the generator that ``generate`` runs; ``replicas``
+    (default: one, on the default device) says where the trainer runs and
+    with which other replicas."""
 
-    def __init__(self, config, nets: dict, groups: tuple, sampler: str):
+    def __init__(self, config, nets: dict, groups: tuple, sampler: str, replicas: Replicas):
         self.config = config
         self.groups = groups
-        self.device = default_device()
+        self.replicas = replicas
+        self.device = replicas.device
+        self.local_batch = config.batch_size // replicas.size   # a full step's rows per replica
+        # a full step's draws are keyed by the rank where W > 1; the partial
+        # last batch takes the rank-free draws on every replica
+        self._rank_key = (replicas.rank,) if replicas.size > 1 else ()
         self.dtype = torch_dtype(config.dtype)
         self.nets = {name: net.to(self.device) for name, net in nets.items()}
         self.params = {name: list(net.parameters()) for name, net in self.nets.items()}
@@ -137,8 +176,12 @@ class GANTrainer:
         self._runners = {}       # (training, batch, caches) -> (runner, static buffers)
         self._graph_pool = None  # the runners' shared CUDA-graph memory pool
         self._streams = {}       # (training, batch shapes) -> loop.StreamBuffers
-        # steps the runners ran eagerly, graph captures and replays
+        # steps the runners ran eagerly, graph captures and replays; with a
+        # group whose collectives cannot be captured, the steps on the card
+        # that ran eagerly for that reason
         self.epoch_counts = {"eager": 0, "captures": 0, "replays": 0}
+        if self.device.type == "cuda" and not replicas.capturable:
+            self.epoch_counts["eager_by_backend"] = 0
 
     # ------------------------------------------------------------------ step
     def _draws(self, seed: int, *key: int) -> torch.Generator:
@@ -151,7 +194,7 @@ class GANTrainer:
         return [keep_mask(shape, generator, self.device)
                 for shape in net.dropout_shapes(batch, self.config.img_size)]
 
-    def _losses(self, x, y, generators, masks=None):
+    def _losses(self, x, y, generators, masks=None, bn_group=None):
         raise NotImplementedError
 
     def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
@@ -164,20 +207,23 @@ class GANTrainer:
         and the draws ``draws``. Returns the (K,) losses."""
         raise NotImplementedError
 
-    def gradients(self, x, y, generators=None, masks=None):
+    def gradients(self, x, y, generators=None, masks=None, bn_group=None):
         """({network: gradients of its total w.r.t. its parameters}, losses),
         with nothing updated: one ``autograd.grad`` per gradient group. x, y:
         normalized (N, S, S, C) batches. Dropout draws from ``generators``
         or takes ``masks`` (as ``StepDraws.masks``); with neither it is
-        off."""
-        objectives, losses = self._losses(x, y, generators, masks)
+        off. ``bn_group`` gives batch norm cross-replica statistics. With
+        replicas in a group, each gradient group's gradients and the losses
+        are their means over the replicas."""
+        objectives, losses = self._losses(x, y, generators, masks, bn_group)
         grads = {}
         for i, (group, objective) in enumerate(zip(self.groups, objectives)):
             flat = torch.autograd.grad(objective, [p for n in group for p in self.params[n]],
                                        retain_graph=i < len(self.groups) - 1)
+            flat = self.replicas.average(flat)
             for name in group:
                 grads[name], flat = flat[:len(self.params[name])], flat[len(self.params[name]):]
-        return grads, losses.detach()
+        return grads, self.replicas.average([losses.detach()])[0]
 
     def apply_gradients(self, grads: dict) -> None:
         """One Adam update of each network from :meth:`gradients`' output."""
@@ -187,15 +233,15 @@ class GANTrainer:
             opt.step()
             opt.zero_grad(set_to_none=True)
 
-    def train_step(self, x, y, generators=None, masks=None) -> torch.Tensor:
+    def train_step(self, x, y, generators=None, masks=None, bn_group=None) -> torch.Tensor:
         """One step of every network; returns the losses (on the device)."""
-        grads, losses = self.gradients(x, y, generators, masks)
+        grads, losses = self.gradients(x, y, generators, masks, bn_group)
         self.apply_gradients(grads)
         return losses
 
     @torch.no_grad()
-    def eval_step(self, x, y, generators=None, masks=None) -> torch.Tensor:
-        return self._losses(x, y, generators, masks)[1]
+    def eval_step(self, x, y, generators=None, masks=None, bn_group=None) -> torch.Tensor:
+        return self.replicas.average([self._losses(x, y, generators, masks, bn_group)[1]])[0]
 
     # ----------------------------------------------------------------- epoch
     def _cached_epoch(self, caches: tuple, rows: tuple, epoch: int, training: bool,
@@ -216,7 +262,8 @@ class GANTrainer:
             trainer = weakref.ref(self)   # no cycle: a dropped trainer frees its graphs at once
             runner = loop.make_cached_epoch(
                 lambda: trainer()._epoch_step(caches, idx, draws, training), self.device,
-                pool=self._graph_pool, counts=self.epoch_counts)
+                pool=self._graph_pool, counts=self.epoch_counts,
+                capture=self.replicas.capturable)
             self._runners[key] = (runner, idx, draws)
         runner, idx, draws = self._runners[key]
 
@@ -241,7 +288,7 @@ class GANTrainer:
         Returns the (steps, K) losses on the device, in pieces. The prefetch
         thread and a FileCache's threads have ended when it returns or
         raises."""
-        b = self.config.batch_size
+        b = self.local_batch
         losses = []
         with contextlib.closing(loader.prefetch_iter(batches, depth=2)) as it:
             if full:
@@ -261,15 +308,44 @@ class GANTrainer:
         """``fit``'s storage plan (gan_tpu's ``_storage_plan``): each group of
         caches, which share one decision, comes back on the device
         (resident) or as it is (streamed; always for a FileCache). Prints
-        gan_tpu's line when anything streams."""
+        gan_tpu's line when anything streams. Over W > 1 replicas a
+        resident cache is the replica's :class:`Stripe`, and the plan
+        weighs a stripe's bytes."""
+        w, r = self.replicas.size, self.replicas.rank
         plan = loader.plan_cache_storage(
-            [None if any(isinstance(c, loader.FileCache) for c in g) else sum(c.nbytes for c in g)
-             for g in groups], self.device, self.config.device_cache)
+            [None if any(isinstance(c, loader.FileCache) for c in g)
+             else sum(-(-c.nbytes // w) for c in g) for g in groups],
+            self.device, self.config.device_cache)
         if any(p != "resident" for p in plan):
             print(f"Device cache plan: train={plan[0]}, val={plan[1]} "
                   "(stream = batches fed from host).", flush=True)
-        return [tuple(torch.from_numpy(np.ascontiguousarray(c)).to(self.device) for c in g)
-                if p == "resident" else g for p, g in zip(plan, groups)]
+
+        def resident(c):
+            if w == 1:
+                return torch.from_numpy(np.ascontiguousarray(c)).to(self.device)
+            return Stripe(torch.from_numpy(c[stripe_rows(len(c), w, r)]).to(self.device), c)
+
+        return [tuple(resident(c) for c in g) if p == "resident" else g
+                for p, g in zip(plan, groups)]
+
+    def _rank_batches(self, cache, full_rows: np.ndarray, tail_rows: np.ndarray):
+        """A streamed epoch's host batches of one domain on this replica:
+        ``local_batch`` rows at a time from ``full_rows`` (global row
+        indices, step-major), then the partial last batch ``tail_rows``
+        (empty: none). A FileCache decodes only these rows."""
+        b = self.local_batch
+        if len(tail_rows) <= b:   # the tail is the last chunk of one pass
+            return loader.iter_uint8_batches(cache, b, np.concatenate([full_rows, tail_rows]))
+        return itertools.chain(loader.iter_uint8_batches(cache, b, full_rows),
+                               loader.iter_uint8_batches(cache, len(tail_rows), tail_rows))
+
+    def _tail_rows(self, cache, rows: np.ndarray) -> torch.Tensor:
+        """The partial last batch's uint8 rows (global indices) on the
+        device: gathered from a resident cache where it is whole (one
+        replica), else copied from the host cache of its :class:`Stripe`."""
+        if isinstance(cache, Stripe):
+            return self._to_device(cache.host[rows])
+        return cache[torch.from_numpy(rows).to(self.device)]
 
     def _timed_epoch(self, run: Callable[[], np.ndarray], epoch: int, start_epoch: int,
                      perf: Throughput, images: Callable[[np.ndarray], int], unit: str):

@@ -43,7 +43,8 @@ need none (chip_smoke.py ``form_sweep``; PERF.md).
 
 **Draws.** Dropout masks and jitter offsets come from ``torch.Generator``s
 seeded as a pure function of (seed + 1, epoch, train or val, step, index),
-so a re-run repeats its draws, as ``loop.epoch_rng`` does for the shuffles.
+so a re-run repeats its draws, as ``loop.epoch_rng`` does for the shuffles;
+over W > 1 replicas a full step's key holds the rank before the index.
 The index of a dropout generator is its generator pass's, one per pass as
 gan_tpu draws one key per pass (three in the batched form, six in the
 unbatched one); the jitter's indices lie past every pass's.
@@ -59,6 +60,14 @@ step (gan_tpu's ``_run_remainder``). ``fit`` resumes at ``start_epoch``
 hybrid tier, epoch segments and the fault fence's in-process rewind are not
 ported: a CUDA fault poisons the process's context, so recovery on the card
 is a new process with ``--resume``.
+
+**Data parallelism** (train/base.py): over W replicas each domain's epoch
+order is drawn per stripe (``loop.shuffled_stripe_perm``, ``--buffer-size``
+per stripe), each replica taking B / W rows of its own stripe per full step,
+and the zip tail is drawn from the rows that the full steps left, so that
+an epoch visits every row at most once at any W; it runs whole on every
+replica. ``passes`` decides the form from the rows a step sees, so a full
+step's form follows the per-replica batch.
 """
 
 from __future__ import annotations
@@ -73,13 +82,13 @@ import torch
 from gan_tpu_torch.config import CycleGANConfig
 from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
                                         single_jitter_batch)
-from gan_tpu_torch.data.loader import device_bytes, iter_uint8_batches
-from gan_tpu_torch.device import default_device
+from gan_tpu_torch.data.loader import device_bytes
 from gan_tpu_torch.losses import (CYCLEGAN_LOSS_KEYS, cycle_loss, discriminator_loss,
                                   empty_losses, generator_adversarial_loss, identity_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
+from gan_tpu_torch.parallel import Replicas, single
 from gan_tpu_torch.train import loop
-from gan_tpu_torch.train.base import GANTrainer, StepDraws, generator_depth
+from gan_tpu_torch.train.base import GANTrainer, StepDraws, Stripe, generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.train.pix2pix_trainer import use_remat
 from gan_tpu_torch.utils.grids import save_image_grid
@@ -118,17 +127,18 @@ class CycleGANTrainer(GANTrainer):
     # rows; None: the card's crossover at the image size (``batched_pass_max``)
     BATCHED_PASS_MAX: Optional[int] = None
 
-    def __init__(self, config: CycleGANConfig):
+    def __init__(self, config: CycleGANConfig, replicas: Optional[Replicas] = None):
+        replicas = single() if replicas is None else replicas
         c = config.n_channels
         init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
         depth = generator_depth(config.img_size)
-        remat = use_remat(config, device_bytes(default_device()))
+        remat = use_remat(config, device_bytes(replicas.device), replicas.size)
         self.gen_g = UNetGenerator(c, c, norm="instance", depth=depth, generator=init, remat=remat)
         self.gen_f = UNetGenerator(c, c, norm="instance", depth=depth, generator=init, remat=remat)
         self.disc_x = PatchGANDiscriminator(c, norm="instance", generator=init)
         self.disc_y = PatchGANDiscriminator(c, norm="instance", generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
-                         GRADIENT_GROUPS, sampler="gen_g")
+                         GRADIENT_GROUPS, sampler="gen_g", replicas=replicas)
 
     # ------------------------------------------------------------------ step
     def passes(self, bx: int, by: int) -> tuple:
@@ -140,11 +150,13 @@ class CycleGANTrainer(GANTrainer):
             limit = batched_pass_max(self.config.img_size)
         return BATCHED_PASSES if max(bx, by) <= limit else UNBATCHED_PASSES
 
-    def _losses(self, x, y, generators: Optional[Sequence[torch.Generator]], masks=None):
+    def _losses(self, x, y, generators: Optional[Sequence[torch.Generator]], masks=None,
+                bn_group=None):
         """((the generators' objective, the discriminators'), the 7 losses in
         CYCLEGAN_LOSS_KEYS order). ``generators``: one dropout generator per
         generator pass of ``passes``, in its order, or ``masks``: each
-        pass's keep-masks; with neither dropout is off."""
+        pass's keep-masks; with neither dropout is off. ``bn_group`` changes
+        nothing: every norm here is instance norm."""
         dt = self.dtype
         lam = float(self.config.lam)
         passes = self.passes(x.shape[0], y.shape[0])
@@ -193,15 +205,15 @@ class CycleGANTrainer(GANTrainer):
                               gens)
 
     def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
-        seed, b, size = self.config.seed + 1, self.config.batch_size, self.config.img_size
+        seed, b, size = self.config.seed + 1, self.local_batch, self.config.img_size
+        key = (seed, epoch, stream, step, *self._rank_key)
         passes = self.passes(b, b)
-        masks = [self._masks(self.nets[net], self._draws(seed, epoch, stream, step, k), width)
+        masks = [self._masks(self.nets[net], self._draws(*key, k), width)
                  for k, ((net, _, _), width) in enumerate(zip(passes, pass_widths(passes, b, b)))]
         if stream != 0:
             return StepDraws(masks, [])
-        jitter = [jitter_draws(b, size + JITTER_PAD, size,
-                               self._draws(seed, epoch, stream, step, key), self.device)
-                  for key in (_JITTER_X, _JITTER_Y)]
+        jitter = [jitter_draws(b, size + JITTER_PAD, size, self._draws(*key, index), self.device)
+                  for index in (_JITTER_X, _JITTER_Y)]
         return StepDraws(masks, jitter)
 
     def _epoch_step(self, caches, idx, draws: StepDraws, training: bool) -> torch.Tensor:
@@ -213,39 +225,63 @@ class CycleGANTrainer(GANTrainer):
         return self.eval_step(normalize_batch(u8x, self.dtype), normalize_batch(u8y, self.dtype),
                               masks=draws.masks)
 
+    def _orders(self, ns: tuple, full: int, tail: int, rng: np.random.Generator) -> list:
+        """Per domain of ``ns`` rows, this replica's full steps' rows, (full,
+        local_batch) indices into its cache (its stripe over W > 1
+        replicas), and the zip tail's global rows (where there is a
+        ``tail``: up to B, as many as the domain has left; the longer
+        domain's rows past the zip are never read). One replica draws each
+        domain's whole order (``epoch_perm``); over W > 1,
+        ``shuffled_stripe_perm`` draws each stripe's, and the tail comes
+        from the rows it left."""
+        cfg, w, r, b = self.config, self.replicas.size, self.replicas.rank, self.local_batch
+        big = cfg.batch_size
+        out = []
+        for n in ns:
+            if w == 1:
+                perm = loop.epoch_perm(n, cfg.buffer_size, rng)
+                local, left = perm[:full * b].reshape(full, b), perm[full * b:]
+            else:
+                perm, left = loop.shuffled_stripe_perm(n, ndev=w, n_steps=full, per_dev_batch=b,
+                                                       buffer_size=cfg.buffer_size, rng=rng)
+                local = perm[:, r * b:(r + 1) * b].astype(np.int64)
+            out.append((local, left[:min(big, n - full * big) if tail else 0]))
+        return out
+
     def run_epoch(self, x, y, epoch: int, *, training: bool) -> np.ndarray:
         """One zip(X, Y) pass over uint8 caches: the shorter domain's
         ceil-batched length, independent windowed shuffles per domain
-        (``--buffer-size``). The caches are tensors on the device
+        (``--buffer-size``). The caches are tensors on the device or, over
+        W > 1 replicas, :class:`~gan_tpu_torch.train.base.Stripe` caches
         (resident), or host ndarrays or FileCaches (streamed, in the same
         orders). The full steps run through the cached epoch runner; the
         last step may be the zip tail, a partial batch whose X and Y widths
         may differ, run eagerly. Returns (steps, 7) losses, fetched from the
-        device once."""
+        device once; over replicas, their means."""
         cfg = self.config
-        b = cfg.batch_size
+        w, r = self.replicas.size, self.replicas.rank
         nx, ny = x.shape[0], y.shape[0]
-        full, tail = loop.epoch_plan(min(nx, ny), b)
+        full, tail = loop.epoch_plan(min(nx, ny), cfg.batch_size, w)
         if full + (tail > 0) == 0:
             return np.zeros((0, len(CYCLEGAN_LOSS_KEYS)), np.float32)
         stream = 0 if training else 1
-        rng = loop.epoch_rng(cfg.seed, epoch, stream)
-        perms = [loop.epoch_perm(n, cfg.buffer_size, rng) for n in (nx, ny)]
-        if not isinstance(x, torch.Tensor):
-            steps = full + (tail > 0)   # the longer domain's rows past the zip are never read
-            batches = zip(*(iter_uint8_batches(c, b, p[:steps * b]) for c, p in zip((x, y), perms)))
+        orders = self._orders((nx, ny), full, tail, loop.epoch_rng(cfg.seed, epoch, stream))
+        if not isinstance(x, (torch.Tensor, Stripe)):
+            batches = zip(*(self._rank_batches(c, local.reshape(-1) * w + r, left)
+                            for c, (local, left) in zip((x, y), orders)))
             losses = self._streamed_epoch((x, y), batches, full, tail, epoch, training)
             return torch.cat(losses).cpu().numpy()
-        x_dev, y_dev = x, y
-        perm_x, perm_y = (torch.from_numpy(p).to(self.device) for p in perms)
+        caches = (x, y)
         losses = []
         if full:
-            rows = (perm_x[:full * b].view(full, b), perm_y[:full * b].view(full, b))
-            losses.append(self._cached_epoch((x_dev, y_dev), rows, epoch, training))
+            rows = tuple(torch.from_numpy(local).to(self.device) for local, _ in orders)
+            losses.append(self._cached_epoch(
+                tuple(c.local if isinstance(c, Stripe) else c for c in caches), rows, epoch,
+                training))
         if tail:
-            s = full
-            losses.append(self._step(x_dev[perm_x[s * b:(s + 1) * b]],
-                                     y_dev[perm_y[s * b:(s + 1) * b]], epoch, stream, s)[None])
+            losses.append(self._step(*(self._tail_rows(c, left)
+                                       for c, (_, left) in zip(caches, orders)),
+                                     epoch, stream, full)[None])
         return torch.cat(losses).cpu().numpy()
 
     # ------------------------------------------------------------------- fit
@@ -257,9 +293,10 @@ class CycleGANTrainer(GANTrainer):
         (N, S+30, S+30, C), val and test (N, S, S, C); the train and val
         caches may be FileCaches of such rows instead, and stream. A
         checkpoint and an ``epoch_{N}.png`` sample every 5 epochs, a
-        checkpoint at the end, and one every ``--checkpoint-every`` epochs.
-        Returns the per-epoch mean losses of train and val, of the epochs
-        this call trained."""
+        checkpoint at the end, and one every ``--checkpoint-every`` epochs
+        (over replicas, rank 0 writes the samples, and only the ranks given
+        a manager save). Returns the per-epoch mean losses of train and val,
+        of the epochs this call trained."""
         cfg = self.config
         print("\nTraining...\n", flush=True)
         example = test_cache[:1].astype(np.float32) / 127.5 - 1.0
@@ -267,7 +304,8 @@ class CycleGANTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
         val_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
-        perf = Throughput(1)
+        perf = Throughput(self.replicas.size)
+        writes = self.replicas.rank == 0   # only rank 0 writes samples
         # pairs consumed: the zip tail is partial, so it is not counted full
         pairs = lambda tr: min(tr.shape[0] * cfg.batch_size, len(train_x), len(train_y))
         for epoch in range(start_epoch, cfg.epochs):
@@ -281,12 +319,15 @@ class CycleGANTrainer(GANTrainer):
                 val_cost[k].append(float(va[:, i].mean()) if len(va) else float("nan"))
 
             test_img_path = os.path.join(output_path, "test_images")
-            os.makedirs(test_img_path, exist_ok=True)
+            if writes:
+                os.makedirs(test_img_path, exist_ok=True)
             if (epoch + 1) % 5 == 0 and (epoch + 1) != cfg.epochs:
                 if checkpoint_manager is not None:
                     checkpoint_manager.save(epoch + 1, self.state())
-                self.generate_image(example, os.path.join(test_img_path, f"epoch_{epoch + 1}.png"),
-                                    key_index=epoch + 1)
+                if writes:
+                    self.generate_image(example, os.path.join(test_img_path,
+                                                              f"epoch_{epoch + 1}.png"),
+                                        key_index=epoch + 1)
             if (epoch + 1) == cfg.epochs and checkpoint_manager is not None:
                 checkpoint_manager.save(epoch + 1, self.state())
             self._checkpoint_every(epoch + 1, checkpoint_manager)

@@ -1,6 +1,7 @@
 """The device-side epoch, shuffles and batch counts (counterpart of
 gan_tpu/train/loop.py: ``make_cached_epoch``, ``epoch_rng``, ``epoch_perm``,
-``epoch_plan``).
+``epoch_plan``, and the data-parallel ``stripe_order``, ``local_perm`` and
+``shuffled_stripe_perm``).
 
 gan_tpu compiles one program per epoch: a ``scan`` of the step over a
 device-resident cache. Here :func:`make_cached_epoch` builds a
@@ -14,6 +15,16 @@ eagerly, step by step. Capture or replay failures raise; nothing falls back
 to an eager step on the card. A streamed epoch runs the same runner over
 :class:`StreamBuffers`, device buffers of one batch that ``prepare`` fills
 from the host before each step.
+
+Data parallelism (gan_tpu_torch.parallel): a resident cache is striped over
+the W replicas, row i on rank i % W at local index i // W, so that a
+fixed-order global step s takes exactly rows [s·B, (s+1)·B) at any W
+(``local_perm``), and a shuffled epoch draws each stripe's own order
+(``shuffled_stripe_perm``). Under NCCL the captured step holds the step's
+all-reduces; the runner's eager warm-up step is then also the group's first
+collective, which NCCL needs before a capture. A gloo group's collectives
+run on the host and cannot be captured, so with one the runner runs every
+step eagerly on the card, by that rule (``capture=False``), and counts them.
 
 The port keeps its own copy of the numpy part because gan_tpu's module
 imports jax.
@@ -64,10 +75,70 @@ def epoch_perm(n: int, buffer_size: int, rng: np.random.Generator) -> np.ndarray
     return out
 
 
-def epoch_plan(n: int, batch_size: int) -> tuple[int, int]:
-    """(full batches, size of the partial last batch) of ``n`` rows; tf.data
-    batches without dropping the remainder."""
+def epoch_plan(n: int, batch_size: int, ndev: int = 1) -> tuple[int, int]:
+    """(full global batches, size of the partial last batch) of ``n`` rows;
+    tf.data batches without dropping the remainder. Over ``ndev`` replicas
+    each full batch splits into ``batch_size // ndev`` rows per replica, and
+    the partial batch runs whole on every replica (gan_tpu's ``epoch_plan``,
+    whose per-device batch the trainers keep as ``local_batch``)."""
+    if batch_size % ndev:
+        raise ValueError(f"global batch {batch_size} must divide across {ndev} devices")
     return n // batch_size, n % batch_size
+
+
+def stripe_order(n: int, ndev: int) -> np.ndarray:
+    """The row order that, cut into ``ndev`` equal blocks, puts row i in block
+    i % ndev at index i // ndev: block d is [d, d + ndev, d + 2·ndev, ...].
+    Rows past n (padding to equal blocks) wrap to the start of that block's
+    stripe; no epoch draws them."""
+    l = -(-max(n, 1) // ndev)
+    rows = np.arange(ndev)[:, None] + np.arange(l)[None, :] * ndev
+    return np.where(rows < max(n, 1), rows, rows % max(n, 1)).reshape(-1)
+
+
+def _stripe_len(n: int, ndev: int, d: int, need: int) -> int:
+    real = n // ndev + (1 if d < n % ndev else 0)
+    if need > max(real, 1):
+        raise ValueError(f"need {need} rows from a {real}-row stripe (n={n}, ndev={ndev})")
+    return real
+
+
+def local_perm(n: int, *, ndev: int, n_steps: int, per_dev_batch: int) -> np.ndarray:
+    """(n_steps, ndev · per_dev_batch) int32 local indices of a fixed-order
+    epoch over a striped cache: column block d indexes stripe d, and every
+    block is ``arange``, so global step s draws exactly rows [s·B, (s+1)·B)
+    at any ndev (Pix2Pix's fixed order, which the reference shuffles once
+    at the split)."""
+    need = n_steps * per_dev_batch
+    cols = []
+    for d in range(ndev):
+        _stripe_len(n, ndev, d, need)
+        cols.append(np.arange(need).reshape(n_steps, per_dev_batch))
+    return np.concatenate(cols, axis=1).astype(np.int32)
+
+
+def shuffled_stripe_perm(n: int, *, ndev: int, n_steps: int, per_dev_batch: int,
+                         buffer_size: int, rng: np.random.Generator
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """A shuffled epoch over a striped cache (CycleGAN's per-epoch shuffles
+    over ndev > 1 replicas): ``perm``, (n_steps, ndev · per_dev_batch) local
+    indices as in :func:`local_perm`, each stripe's order drawn by
+    :func:`epoch_perm` over that stripe (``--buffer-size`` per stripe), and
+    ``leftover``, the global rows (stripe d, local j ↔ j·ndev + d) that the
+    full steps did not draw, shuffled across stripes. The zip tail draws
+    from ``leftover``, so an epoch visits every row at most once, and the
+    shorter domain exactly once."""
+    need = n_steps * per_dev_batch
+    cols, leftovers = [], []
+    for d in range(ndev):
+        real = _stripe_len(n, ndev, d, need)
+        order = epoch_perm(max(real, 1), buffer_size, rng)
+        cols.append(order[:need].reshape(n_steps, per_dev_batch))
+        leftovers.append(order[need:real].astype(np.int64) * ndev + d)
+    perm = np.concatenate(cols, axis=1).astype(np.int32)
+    leftover = np.concatenate(leftovers) if leftovers else np.empty(0, np.int64)
+    rng.shuffle(leftover)   # unbias the tail's draw across the stripes
+    return perm, leftover
 
 
 class CachedEpoch:
@@ -79,13 +150,16 @@ class CachedEpoch:
     step and their state exists before capture). The same step is then
     captured, and every later step, in this epoch and the next ones,
     replays the graph. ``counts`` tallies the steps run eagerly, the
-    captures and the replays."""
+    captures and the replays. With ``capture=False`` (a gloo group's
+    collectives in the step) every step on the card runs eagerly, and
+    ``counts["eager_by_backend"]`` counts those steps too."""
 
     def __init__(self, step_fn: Callable[[], torch.Tensor], device: torch.device, *,
-                 counts: dict, pool=None):
+                 counts: dict, pool=None, capture: bool = True):
         self.step_fn = step_fn
         self.device = device
         self.pool = pool
+        self.capture = capture
         self.counts = counts   # {"eager", "captures", "replays"}: shared tallies
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out: Optional[torch.Tensor] = None   # the graph's losses, rewritten by each replay
@@ -107,6 +181,10 @@ class CachedEpoch:
     def _step(self) -> torch.Tensor:
         if self.device.type != "cuda":
             self.counts["eager"] += 1
+            return self.step_fn()
+        if not self.capture:
+            self.counts["eager"] += 1
+            self.counts["eager_by_backend"] += 1
             return self.step_fn()
         if self.graph is None:
             return self._warm_up_and_capture()
@@ -199,7 +277,7 @@ class StreamBuffers:
 
 
 def make_cached_epoch(step_fn: Callable[[], torch.Tensor], device: torch.device, *,
-                      counts: dict, pool=None) -> CachedEpoch:
+                      counts: dict, pool=None, capture: bool = True) -> CachedEpoch:
     """The epoch runner of ``step_fn`` (gan_tpu/train/loop.py:63).
 
     ``step_fn()`` runs one step against static inputs (the caches, the index
@@ -208,5 +286,6 @@ def make_cached_epoch(step_fn: Callable[[], torch.Tensor], device: torch.device,
     synchronisation, so that it can be captured. ``counts`` tallies the
     steps run eagerly, the captures and the replays. ``pool`` is the graph
     memory pool (``torch.cuda.graph_pool_handle()``) that runners which
-    never run at once may share."""
-    return CachedEpoch(step_fn, device, pool=pool, counts=counts)
+    never run at once may share. ``capture=False`` runs every step eagerly
+    on the card as well (a step with collectives that cannot be captured)."""
+    return CachedEpoch(step_fn, device, pool=pool, counts=counts, capture=capture)

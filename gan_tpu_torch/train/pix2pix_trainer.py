@@ -15,7 +15,8 @@ without touching D's parameters, and D's stops at the fake, which is
 gan_tpu's ``sg_tree`` / ``stop_gradient`` partition.
 
 **Draws.** Per step, one dropout generator and one jitter generator, seeded
-from (seed + 1, epoch, train or val, step, index).
+from (seed + 1, epoch, train or val, step, index), and over W > 1 replicas
+from (seed + 1, epoch, train or val, step, rank, index) for a full step.
 
 **Epochs** run in the fixed order of the split (the reference shuffles once
 there): the full batches through the cached epoch runner (a CUDA graph of
@@ -26,10 +27,18 @@ The uint8 caches live whole on the device when they fit, or stream from the
 host (``--device-cache off``, or a FileCache under ``--host-cache off``) in
 the same order and with the same draws (train/base.py). ``fit`` resumes at
 ``start_epoch`` (``--resume``) and saves every ``--checkpoint-every``
-epochs. gan_tpu's hybrid tier, epoch segments, data parallelism and the
-fault fence's in-process rewind are not ported: a CUDA fault poisons the
-process's context, so recovery on the card is a new process with
-``--resume``.
+epochs. gan_tpu's hybrid tier, epoch segments and the fault fence's
+in-process rewind are not ported: a CUDA fault poisons the process's
+context, so recovery on the card is a new process with ``--resume``.
+
+**Data parallelism** (train/base.py): over W replicas, global step s takes
+rows [s·B, (s+1)·B), replica r the B / W of them that its stripe holds
+(``loop.local_perm``), with per-replica batch-norm statistics, or with
+``--bn-cross-replica true`` statistics over all W replicas' rows (the
+``bn_group``; gan_tpu's ``bn_axis``); the remainder runs whole on every
+replica with per-replica statistics, which are then the batch's. At a
+per-replica batch of one, per-replica batch norm is instance norm with
+batch norm's epsilon, K1 and K2 on the card.
 
 **Predict** normalises each image with its own batch-norm statistics
 (``per_sample``, K1 on the card), as the reference's one-image-at-a-time
@@ -49,13 +58,13 @@ import torch
 from gan_tpu_torch.config import CycleGANConfig, Pix2PixConfig
 from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
                                         paired_jitter_batch)
-from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION, device_bytes, iter_uint8_batches
-from gan_tpu_torch.device import default_device
+from gan_tpu_torch.data.loader import DEVICE_CACHE_FRACTION, device_bytes
 from gan_tpu_torch.losses import (PIX2PIX_LOSS_KEYS, discriminator_loss, empty_losses,
                                   pix2pix_generator_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
+from gan_tpu_torch.parallel import Replicas, single
 from gan_tpu_torch.train import loop
-from gan_tpu_torch.train.base import GANTrainer, StepDraws, generator_depth
+from gan_tpu_torch.train.base import GANTrainer, StepDraws, Stripe, generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import Throughput
@@ -76,11 +85,12 @@ REMAT_FREE_PEAK = {"pix2pix": (0.965 * 2**30, 0.0467 * 2**30),
                    "cyclegan": (2.349 * 2**30, 0.1732 * 2**30)}
 
 
-def use_remat(config, device_memory: int) -> bool:
+def use_remat(config, device_memory: int, n_devices: int = 1) -> bool:
     """``--remat``: ``on`` and ``off`` as given; ``auto`` checkpoints the
     U-Net blocks only where training would not fit without it: where the
-    remat-free peak that ``REMAT_FREE_PEAK`` predicts for the model at
-    ``batch_size`` × (``img_size`` / 256)² image equivalents exceeds the
+    remat-free peak that ``REMAT_FREE_PEAK`` predicts for the model at the
+    per-replica batch (``batch_size`` // ``n_devices``, as gan_tpu's
+    ``per_dev``) × (``img_size`` / 256)² image equivalents exceeds the
     share of ``device_memory`` that the device-cache plan leaves to training
     (1 − ``DEVICE_CACHE_FRACTION``). On the H100 80GB (79.18 GiB) that is
     past 996 equivalents for Pix2Pix (512², batch 250), beyond the largest
@@ -94,32 +104,39 @@ def use_remat(config, device_memory: int) -> bool:
         return config.remat == "on"
     fixed, per_image = REMAT_FREE_PEAK["cyclegan" if isinstance(config, CycleGANConfig)
                                        else "pix2pix"]
-    images = config.batch_size * (config.img_size / 256) ** 2
+    images = config.batch_size // max(1, n_devices) * (config.img_size / 256) ** 2
     return fixed + per_image * images > (1 - DEVICE_CACHE_FRACTION) * device_memory
 
 
 class Pix2PixTrainer(GANTrainer):
-    def __init__(self, config: Pix2PixConfig):
+    def __init__(self, config: Pix2PixConfig, replicas: Optional[Replicas] = None):
+        replicas = single() if replicas is None else replicas
         c = config.n_channels
         init = torch.Generator().manual_seed(config.seed)   # CPU draws: same weights on any device
         self.gen = UNetGenerator(c, c, norm="batch", depth=generator_depth(config.img_size),
                                  generator=init,
-                                 remat=use_remat(config, device_bytes(default_device())))
+                                 remat=use_remat(config, device_bytes(replicas.device),
+                                                 replicas.size))
         self.disc = PatchGANDiscriminator(c, norm="batch", target=True, generator=init)
         super().__init__(config, {name: getattr(self, name) for name in NETWORKS},
-                         GRADIENT_GROUPS, sampler="gen")
+                         GRADIENT_GROUPS, sampler="gen", replicas=replicas)
+        # the full steps' cross-replica batch norm: only over W > 1 replicas
+        # (gan_tpu's pix2pix_trainer.py:133-134)
+        self.bn_group = (replicas.group if config.bn_cross_replica == "true"
+                         and replicas.size > 1 else None)
 
     # ------------------------------------------------------------------ step
-    def _losses(self, x, y, generator: Optional[torch.Generator], masks=None):
+    def _losses(self, x, y, generator: Optional[torch.Generator], masks=None, bn_group=None):
         """((the generator's total, the discriminator's), the 4 losses in
         PIX2PIX_LOSS_KEYS order). ``generator`` draws the dropout, or
-        ``masks`` ([G's keep-masks]) gives it; with neither it is off."""
+        ``masks`` ([G's keep-masks]) gives it; with neither it is off.
+        ``bn_group``: cross-replica batch-norm statistics."""
         cfg = self.config
         dt = self.dtype
         fake = self.gen(x, generator=generator, masks=None if masks is None else masks[0],
-                        compute_dtype=dt)
-        d_real = self.disc(x, y, compute_dtype=dt)
-        d_fake = self.disc(x, fake, compute_dtype=dt)
+                        compute_dtype=dt, bn_group=bn_group)
+        d_real = self.disc(x, y, compute_dtype=dt, bn_group=bn_group)
+        d_fake = self.disc(x, fake, compute_dtype=dt, bn_group=bn_group)
         gen_total, gen_gan, gen_sec = pix2pix_generator_loss(
             d_fake, fake, y, lam=float(cfg.lam), kind=cfg.generator_loss)
         disc = discriminator_loss(d_real, d_fake, 0.5)
@@ -138,12 +155,12 @@ class Pix2PixTrainer(GANTrainer):
         return self.eval_step(x, y, drop)
 
     def _step_draws(self, epoch: int, stream: int, step: int) -> StepDraws:
-        seed, b, size = self.config.seed + 1, self.config.batch_size, self.config.img_size
-        masks = [self._masks(self.gen, self._draws(seed, epoch, stream, step, _DROPOUT), b)]
+        seed, b, size = self.config.seed + 1, self.local_batch, self.config.img_size
+        key = (seed, epoch, stream, step, *self._rank_key)
+        masks = [self._masks(self.gen, self._draws(*key, _DROPOUT), b)]
         if stream != 0:
             return StepDraws(masks, [])
-        jitter = jitter_draws(b, size + JITTER_PAD, size,
-                              self._draws(seed, epoch, stream, step, _JITTER), self.device)
+        jitter = jitter_draws(b, size + JITTER_PAD, size, self._draws(*key, _JITTER), self.device)
         return StepDraws(masks, [jitter])
 
     def _epoch_step(self, caches, idx, draws: StepDraws, training: bool) -> torch.Tensor:
@@ -151,28 +168,37 @@ class Pix2PixTrainer(GANTrainer):
         if training:
             x, y = paired_jitter_batch(u8, None, img_size=self.config.img_size, dtype=self.dtype,
                                        draws=draws.jitter[0])
-            return self.train_step(x, y, masks=draws.masks)
+            return self.train_step(x, y, masks=draws.masks, bn_group=self.bn_group)
         x, y = (normalize_batch(u8[:, k], self.dtype).contiguous() for k in (0, 1))
-        return self.eval_step(x, y, masks=draws.masks)
+        return self.eval_step(x, y, masks=draws.masks, bn_group=self.bn_group)
 
     def run_epoch(self, cache, epoch: int, *, training: bool) -> np.ndarray:
         """One pass over a uint8 cache in its fixed order: the full batches
         through the cached epoch runner, then the remainder as an eager
-        step. ``cache`` is a tensor on the device (resident), or a host
+        step. ``cache`` is a tensor on the device or, over W > 1 replicas,
+        a :class:`~gan_tpu_torch.train.base.Stripe` (resident), or a host
         ndarray or FileCache (streamed). Returns (steps, 4) losses, fetched
-        from the device once."""
-        b = self.config.batch_size
-        full, tail = loop.epoch_plan(cache.shape[0], b)
-        if isinstance(cache, torch.Tensor):
+        from the device once; over replicas, their means."""
+        w, r, b = self.replicas.size, self.replicas.rank, self.local_batch
+        n = cache.shape[0]
+        full, tail = loop.epoch_plan(n, self.config.batch_size, w)
+        # the rows of this replica's stripe that each full step takes
+        local = loop.local_perm(n, ndev=w, n_steps=full, per_dev_batch=b)[:, r * b:(r + 1) * b]
+        if isinstance(cache, (torch.Tensor, Stripe)):
             losses = []
             if full:
-                rows = torch.arange(full * b, device=self.device).view(full, b)
-                losses.append(self._cached_epoch((cache,), (rows,), epoch, training))
+                rows = torch.from_numpy(local.astype(np.int64)).to(self.device)
+                losses.append(self._cached_epoch(
+                    (cache.local if isinstance(cache, Stripe) else cache,), (rows,), epoch,
+                    training))
             if tail:
-                losses.append(self._step(cache[full * b:], epoch, 0 if training else 1, full)[None])
+                losses.append(self._step(self._tail_rows(cache, np.arange(n - tail, n)), epoch,
+                                         0 if training else 1, full)[None])
         else:
-            losses = self._streamed_epoch((cache,), ((u8,) for u8 in iter_uint8_batches(cache, b)),
-                                          full, tail, epoch, training)
+            batches = self._rank_batches(cache, local.reshape(-1).astype(np.int64) * w + r,
+                                         np.arange(n - tail, n))
+            losses = self._streamed_epoch((cache,), ((u8,) for u8 in batches), full, tail,
+                                          epoch, training)
         if not losses:
             return np.zeros((0, len(PIX2PIX_LOSS_KEYS)), np.float32)
         return torch.cat(losses).cpu().numpy()
@@ -187,8 +213,10 @@ class Pix2PixTrainer(GANTrainer):
         (N, 2, S+30, S+30, C), val and test (N, 2, S, S, C); train and val
         may be FileCaches of such rows instead, and stream. A checkpoint and
         an ``epoch_{N}.png`` sample every 5 epochs, a checkpoint at the end,
-        and one every ``--checkpoint-every`` epochs. Returns the per-epoch
-        mean losses of train and val, of the epochs this call trained."""
+        and one every ``--checkpoint-every`` epochs (over replicas, rank 0
+        writes the samples, and only the ranks given a manager save).
+        Returns the per-epoch mean losses of train and val, of the epochs
+        this call trained."""
         cfg = self.config
         print("\nTraining...\n", flush=True)
         example = test_cache[:1].astype(np.float32) / 127.5 - 1.0
@@ -196,7 +224,8 @@ class Pix2PixTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(PIX2PIX_LOSS_KEYS)
         val_cost = empty_losses(PIX2PIX_LOSS_KEYS)
-        perf = Throughput(1)
+        perf = Throughput(self.replicas.size)
+        writes = self.replicas.rank == 0   # only rank 0 writes samples
         for epoch in range(start_epoch, cfg.epochs):
             tr = self._timed_epoch(lambda: self.run_epoch(train_src, epoch, training=True),
                                    epoch, start_epoch, perf, lambda _: train_cache.shape[0],
@@ -208,13 +237,15 @@ class Pix2PixTrainer(GANTrainer):
                 val_cost[k].append(float(va[:, i].mean()) if len(va) else float("nan"))
 
             test_img_path = os.path.join(output_path, "test_images")
-            os.makedirs(test_img_path, exist_ok=True)
+            if writes:
+                os.makedirs(test_img_path, exist_ok=True)
             if (epoch + 1) % 5 == 0 and (epoch + 1) != cfg.epochs:
                 if checkpoint_manager is not None:
                     checkpoint_manager.save(epoch + 1, self.state())
-                self.generate_image(example[:, 0], example[:, 1],
-                                    os.path.join(test_img_path, f"epoch_{epoch + 1}.png"),
-                                    key_index=epoch + 1)
+                if writes:
+                    self.generate_image(example[:, 0], example[:, 1],
+                                        os.path.join(test_img_path, f"epoch_{epoch + 1}.png"),
+                                        key_index=epoch + 1)
             if (epoch + 1) == cfg.epochs and checkpoint_manager is not None:
                 checkpoint_manager.save(epoch + 1, self.state())
             self._checkpoint_every(epoch + 1, checkpoint_manager)

@@ -54,6 +54,12 @@ def redirect_logging(dirs: RunDirs) -> None:
     sys.stderr = f
 
 
+def silence() -> None:
+    """stdout -> os.devnull: a data-parallel replica other than rank 0 prints
+    nothing (its errors still reach stderr)."""
+    sys.stdout = open(os.devnull, "w")
+
+
 def dump_json(obj, path: str) -> None:
     with open(path, "w") as f:
         json.dump(obj, f)

@@ -22,7 +22,7 @@ from gan_tpu import config as jax_config
 from gan_tpu.data.augment import normalize_batch as jax_normalize_batch
 from gan_tpu.train.cyclegan_trainer import CycleGANTrainer as JaxTrainer
 import gan_tpu_torch.models.blocks as port_blocks
-from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, parse_pix2pix, refuse_unported
+from gan_tpu_torch.config import CycleGANConfig, parse_cyclegan, parse_pix2pix
 from gan_tpu_torch.cycle_gan import main as port_main
 from gan_tpu_torch.pix2pix import main as pix2pix_main
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
@@ -168,21 +168,23 @@ def test_checkpoint_manager_restore_creates_nothing(tmp_path):
         CheckpointManager(str(tmp_path), max_to_keep=0)
 
 
-# --train refuses only --num-devices > 1 (data parallelism is not ported);
-# the caches' off is ported, so those runs pass the refusal and reach the
-# (here empty) image directory
+# --train with --num-devices 2 at the default batch of 1 exits before any
+# output: the batch does not divide over 2 replicas (data parallelism is
+# ported, and runs no world but the one asked for); the caches' off is
+# ported, so those runs reach the (here empty) image directory
 TRAIN_FLAGS = [["--num-devices", "2"], ["--host-cache", "off"], ["--device-cache", "off"]]
 
 
 def _expect_refusal(flags) -> str:
-    return (f"{flags[0]}.* not ported" if flags[0] == "--num-devices"
+    return ("global batch of 1 does not divide over 2 replicas" if flags[0] == "--num-devices"
             else "No images found in .*directory")
 
 
 @pytest.mark.parametrize("flags", TRAIN_FLAGS, ids=lambda f: f[0])
 def test_train_is_refused(tmp_path, flags):
-    """--train is refused with --num-devices > 1 alone, before any output;
-    with a cache off it runs (here into the empty directory's error)."""
+    """--train is refused with --num-devices 2 at a batch of 1 alone, before
+    any output; with a cache off it runs (here into the empty directory's
+    error)."""
     argv = ["--input-images", str(tmp_path), "--target-images", str(tmp_path), "--output",
             str(tmp_path / "out"), "--train", "--epochs", "1", "--img-size", "32", *flags]
     with pytest.raises(SystemExit, match=_expect_refusal(flags)):
@@ -232,7 +234,6 @@ def test_train_takes_resume_and_checkpoint_every(tmp_path, monkeypatch, flag, cl
     else:
         argv += ["--checkpoint-every", "2"]
     cfg = parse(argv)
-    refuse_unported(cfg)
     reached = {}
 
     def fit(self, *args, checkpoint_manager=None, start_epoch=0):
@@ -251,8 +252,9 @@ def test_train_takes_the_caches_on(value):
     """``auto`` and ``on`` are what the port does, so --train takes them."""
     for parse, first in ((parse_cyclegan, ["--input-images", "x", "--target-images", "y"]),
                          (parse_pix2pix, ["--data", "d"])):
-        refuse_unported(parse([*first, "--output", "o", "--train", "--epochs", "1",
-                               "--host-cache", value, "--device-cache", value]))
+        cfg = parse([*first, "--output", "o", "--train", "--epochs", "1",
+                      "--host-cache", value, "--device-cache", value])
+        assert (cfg.host_cache, cfg.device_cache) == (value, value)
 
 
 def test_predict_runs_with_the_caches_off(transplanted_run, tmp_path):

@@ -25,7 +25,8 @@ import torch
 from PIL import Image
 
 from gan_tpu_torch import cycle_gan, pix2pix
-from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix, refuse_unported
+from gan_tpu_torch.config import parse_cyclegan, parse_pix2pix
+from gan_tpu_torch.parallel import world_size
 from gan_tpu_torch.data import pipeline
 from gan_tpu_torch.data.loader import FileCache
 from gan_tpu_torch.train import base
@@ -245,17 +246,23 @@ def test_predict_host_cache_off_writes_the_same_pngs(tmp_path, monkeypatch, kind
 
 @pytest.mark.parametrize("kind", TRAINERS)
 def test_refuse_unported_refuses_only_data_parallelism(kind):
+    """Data parallelism is ported, so nothing is refused any more: the flags
+    that passed the old refusal train one replica (the CPU counts as one
+    device for --num-devices 0), ``--num-devices 2`` trains two where they
+    divide the batch, and exits where they do not."""
     first = (["--data", "d"] if kind == "pix2pix"
              else ["--input-images", "x", "--target-images", "y"])
     parse = parse_pix2pix if kind == "pix2pix" else parse_cyclegan
     train = [*first, "--output", "o", "--train", "--epochs", "1"]
     for flags in (["--host-cache", "off"], ["--device-cache", "off"], ["--num-devices", "1"],
                   ["--host-cache", "on", "--device-cache", "on"]):
-        refuse_unported(parse([*train, *flags]))
-    refuse_unported(parse([*first, "--output", "o", "--predict", "--weights", "w",
-                           "--num-devices", "2"]))
-    with pytest.raises(SystemExit, match="--num-devices > 1 with --train is not ported"):
-        refuse_unported(parse([*train, "--num-devices", "2"]))
+        cfg = parse([*train, *flags])
+        assert world_size(cfg.num_devices, cfg.batch_size, present=1) == 1
+    cfg = parse([*train, "--num-devices", "2", "--batch-size", "2"])
+    assert world_size(cfg.num_devices, cfg.batch_size, present=8) == 2
+    with pytest.raises(SystemExit, match="global batch of 1 does not divide over 2 replicas"):
+        cfg = parse([*train, "--num-devices", "2"])
+        world_size(cfg.num_devices, cfg.batch_size, present=8)
 
 
 # ------------------------------------------------------------------- the card
