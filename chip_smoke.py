@@ -195,6 +195,31 @@ Phases, each printed; any failure raises and the script exits non-zero:
     ``python3 -c "import chip_smoke as c, tempfile; c.tf32_off();
     c.build.build(); c.run_data_parallel(tempfile.mkdtemp(), 'card')"``.
 
+16. the fault fence (gan_tpu_torch.train.recovery), each run a process of
+    its own through the CLI's ``main`` (``fence_child``: figures and grids
+    stubbed) on seeded noise PNGs, 4 epochs with ``--checkpoint-every 2``,
+    the faults at the 2nd step of train epoch index 2, which replays the
+    graph captured in epoch 0. 16a: CycleGAN at 256², depth 8, bf16, batch
+    2, 8 images a domain: a clean run (its checkpoint saves in GB/s, no
+    anchor left); a RuntimeError raised after the step, rewound in-process
+    (one restore; the seconds from the fault to the end of the first step
+    after the rewind, the restore's and the recapture's among them); a
+    sticky fault, a ``__trap()`` kernel (``TRAP_SOURCE``, built with
+    ``load_inline``) launched on the trainer's stream after the step,
+    which must end in exit 17 within ``STICKY_EXIT_S`` with the resume
+    line and no restore; then ``--resume`` of that run in a fresh process
+    (the seconds from its start to its first step). 16b: Pix2Pix at 256²,
+    batch 4, 16 pairs streamed from the files (``--host-cache off``), clean
+    and with the RuntimeError. Each rewound or resumed run's metrics and
+    final checkpoint are held to the clean run's bit for bit, or, where
+    they differ, within the largest difference of two clean runs, which is
+    then measured and printed. 16c: a step that raises while it is
+    captured, and one whose capture a synchronisation invalidates, leave
+    the current stream as it was and no stream capturing; a fresh runner
+    then captures and replays. Alone, after the build: ``python3 -c
+    "import chip_smoke as c, tempfile; c.tf32_off(); c.build.build();
+    c.run_fence(tempfile.mkdtemp(), 'card')"``.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Only phases 12 and 13 write PNGs, into
 temporary directories.
@@ -209,6 +234,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -216,6 +242,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -233,7 +260,7 @@ from gan_tpu_torch import quality
 from gan_tpu_torch.models import blocks, inception
 from gan_tpu_torch.models.unet import _DOWN_FILTERS, _UP_SPECS
 from gan_tpu_torch.ops import build, conv, kernels, norm
-from gan_tpu_torch.train import base
+from gan_tpu_torch.train import base, loop, recovery
 from gan_tpu_torch.train.base import generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import NETWORKS as NETWORKS_CYCLEGAN
@@ -2937,6 +2964,382 @@ def run_data_parallel(tmp: str, smi: str) -> dict:
     return launches
 
 
+# phase 16: the fault fence, each run a process of its own through the CLI's
+# main. CycleGAN at 256², depth 8, bf16, batch 2, 8 images a domain (1 test,
+# 1 val: 6 X and 7 Y train rows, 3 full steps an epoch) and Pix2Pix at 256²,
+# batch 4, 16 pairs streamed from the files (1 test, 2 val: 13 train pairs,
+# 3 full steps and a 1-pair tail), 4 epochs with --checkpoint-every 2
+FENCE_EPOCHS, FENCE_EVERY = 4, 2
+FENCE_AT = (2, 1)      # (train epoch index, step within it) where the faults strike
+FENCE_CG = (2, 8)      # CycleGAN (batch, images per domain)
+FENCE_P2P = (4, 16)    # Pix2Pix (batch, pairs)
+STICKY_EXIT_S = 60.0   # the most seconds from the sticky fault to exit 17
+FENCE_RUN_S = 600      # a child that outlasts this fails the phase
+TRAP_SOURCE = r"""
+extern "C" __global__ void gt_trap_kernel() { __trap(); }
+extern "C" int gt_trap(void* stream) {
+  gt_trap_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_trap() -> tuple[str, float]:
+    """The ``__trap()`` kernel of 16a's sticky fault, built from
+    ``TRAP_SOURCE`` with ``load_inline`` into ``gan_tpu_torch/build/trap``:
+    a plain C interface and no torch headers, so nvcc takes seconds.
+    Returns (library path, seconds)."""
+    from torch.utils import cpp_extension
+
+    directory = os.path.join(build.BUILD_DIR, "trap")
+    os.makedirs(directory, exist_ok=True)
+    t0 = time.perf_counter()
+    path = cpp_extension.load_inline(
+        "gt_trap", cpp_sources="", cuda_sources=TRAP_SOURCE, build_directory=directory,
+        extra_cuda_cflags=["-gencode=arch=compute_90a,code=sm_90a"], is_python_module=False,
+        no_implicit_headers=True)
+    return path, time.perf_counter() - t0
+
+
+def fence_child(kind: str, fault: str, argv: list, trap: str = "") -> None:
+    """One run of phase 16, in a process of its own: the port CLI's ``main``
+    on ``argv`` (the loss figures and image grids stubbed: no matplotlib on
+    the card's machine), with ``fault`` at step ``FENCE_AT[1]`` of train
+    epoch ``FENCE_AT[0]``: ``none``; ``runtime``, a RuntimeError raised by a
+    wrapper of ``CachedEpoch._step`` after the step ran; ``sticky``, the
+    ``__trap()`` kernel of the library ``trap`` launched on the trainer's
+    stream after the step. Prints ``[fence]`` lines, a JSON object each:
+    host times of the fault and of the steps around it, each restore and
+    each checkpoint save, and at the end the kernels' launches counted on
+    the card."""
+    import ctypes
+
+    from gan_tpu_torch import cycle_gan, pix2pix
+    from gan_tpu_torch.train import cyclegan_trainer, pix2pix_trainer
+
+    cli, module = ((cycle_gan, cyclegan_trainer) if kind == "cyclegan"
+                   else (pix2pix, pix2pix_trainer))
+    cli.write_loss_figs = lambda *args, **kwargs: None
+    module.save_image_grid = lambda *args, **kwargs: None
+    cls = module.CycleGANTrainer if kind == "cyclegan" else module.Pix2PixTrainer
+    at = {"epoch": None, "step": 0, "fired": None, "steps": 0}
+
+    def report(**record):
+        print(f"[fence] {json.dumps(record)}", flush=True)
+
+    real_run_epoch, real_step = cls.run_epoch, loop.CachedEpoch._step
+    real_save, real_restore = CheckpointManager.save, CheckpointManager.restore
+
+    def run_epoch(self, *args, training):
+        at["epoch"], at["step"] = (args[-1] if training else None), 0
+        return real_run_epoch(self, *args, training=training)
+
+    def step(runner):
+        at["steps"] += 1
+        if at["steps"] == 1:
+            report(first_step=time.time())
+        replayed = runner.graph is not None
+        out = real_step(runner)
+        if at["fired"] is not None and "after" not in at:
+            torch.cuda.synchronize()
+            at["after"] = time.time()
+            report(after=at["after"], capture_s=runner.capture_s)
+        if (fault != "none" and at["fired"] is None
+                and (at["epoch"], at["step"]) == FENCE_AT):
+            at["fired"] = time.time()
+            report(fault=at["fired"], epoch=at["epoch"], step=at["step"], replayed=replayed)
+            if fault == "runtime":
+                raise RuntimeError("injected fault after a replayed step")
+            lib = ctypes.CDLL(trap)
+            lib.gt_trap.argtypes = [ctypes.c_void_p]
+            lib.gt_trap(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        at["step"] += 1
+        return out
+
+    def save(self, epoch, state, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(self, epoch, state, **kwargs)
+        seconds = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(self.directory, str(epoch), "state.pt"))
+        report(save=[epoch, nbytes, seconds])
+
+    def restore(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_restore(self, *args, **kwargs)
+        report(restore=time.perf_counter() - t0)
+        return out
+
+    cls.run_epoch, loop.CachedEpoch._step = run_epoch, step
+    CheckpointManager.save, CheckpointManager.restore = save, restore
+    parse = parse_cyclegan if kind == "cyclegan" else parse_pix2pix
+    cli.main(parse(argv))
+    report(launches=kernels.card_launches())
+
+
+def fence_run(kind: str, fault: str, argv: list, trap: str = "") -> dict:
+    """``fence_child`` in a process of its own. Returns its exit code, output,
+    run directory, the host times of its start and end, and its ``[fence]``
+    lines parsed."""
+    code = f"import chip_smoke; chip_smoke.fence_child({kind!r}, {fault!r}, {argv!r}, {trap!r})"
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=FENCE_RUN_S)
+    end = time.time()
+    out = argv[argv.index("--output") + 1]
+    runs = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    res = {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr, "start": t0,
+           "end": end, "run": os.path.join(out, runs[0]) if len(runs) == 1 else None,
+           "saves": [], "restores": []}
+    for line in proc.stdout.splitlines():
+        if line.startswith("[fence] "):
+            record = json.loads(line[len("[fence] "):])
+            for key in ("save", "restore"):
+                if key in record:
+                    res[key + "s"].append(record.pop(key))
+            res.update(record)
+    return res
+
+
+def _state_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _state_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _state_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def fence_diff(run: str, want: str, metrics_from: int = 0) -> float:
+    """The largest absolute difference between two runs: their train and val
+    metrics (``want``'s from epoch ``metrics_from`` on) and every value of
+    their final checkpoints. 0.0: bit for bit; inf: epochs, keys or shapes
+    differ."""
+    worst = 0.0
+    for name in ("train_metrics.json", "val_metrics.json"):
+        with open(os.path.join(run, "logs", name)) as f:
+            got = json.load(f)
+        with open(os.path.join(want, "logs", name)) as f:
+            ref = {k: v[metrics_from:] for k, v in json.load(f).items()}
+        if got.keys() != ref.keys() or any(len(got[k]) != len(ref[k]) for k in ref):
+            return math.inf
+        worst = max([worst] + [abs(a - b) for k in ref for a, b in zip(got[k], ref[k])])
+    states = []
+    for r in (run, want):
+        mgr = CheckpointManager(os.path.join(r, "training_checkpoints"))
+        states.append((mgr.latest_epoch(), list(_state_leaves(mgr.restore(map_location="cpu")))))
+    (e1, got), (e2, ref) = states
+    if e1 != e2 or [p for p, _ in got] != [p for p, _ in ref]:
+        return math.inf
+    for (_, a), (_, b) in zip(got, ref):
+        if isinstance(a, torch.Tensor):
+            if a.shape != b.shape:
+                return math.inf
+            if a.numel():
+                worst = max(worst, float((a.double() - b.double()).abs().max()))
+        elif a != b:
+            return math.inf
+    return worst
+
+
+def _fence_ok(res: dict, what: str) -> None:
+    if res["rc"] != 0 or res["run"] is None:
+        raise AssertionError(f"{what} failed (exit {res['rc']}):\n{res['stdout'][-3000:]}\n"
+                             f"{res['stderr'][-3000:]}")
+
+
+def _held(what: str, diff: float, spread: Optional[float], clean_again) -> float:
+    """Holds ``diff`` (a faulted run against the clean one) at 0, or, where
+    it is not 0, within the spread of two clean runs, which it measures
+    once (``clean_again()``). Returns the spread (None: not measured)."""
+    if diff == 0.0:
+        print(f"{what}: bit for bit equal to the clean run")
+        return spread
+    if spread is None:
+        spread = clean_again()
+        print(f"two clean runs differ by at most {spread:.6e}")
+    print(f"{what}: largest difference from the clean run {diff:.6e} (clean runs' spread "
+          f"{spread:.6e})")
+    if not diff <= spread:
+        raise AssertionError(f"{what} differs from the clean run beyond the clean runs' spread")
+    return spread
+
+
+def check_capture_faults() -> None:
+    """16c: a fault inside a graph capture. A step that raises while it is
+    captured (its warm-up ran) leaves the current stream as it was and no
+    stream capturing, and a fresh runner then captures and replays equal to
+    the eager step; so does a step whose capture is invalidated by a
+    synchronisation, where a fresh runner's first attempt may meet the
+    capture's error, as a rewind's would (printed, not a gate)."""
+    dev = torch.device("cuda", 0)
+    x = torch.linspace(-1, 1, 64 * 64, device=dev).reshape(64, 64)
+    stream = torch.cuda.current_stream(dev)
+    for name, bad in (("raise", lambda y: (_ for _ in ()).throw(RuntimeError("injected"))),
+                      ("invalidate", lambda y: y.sum().item())):
+        calls = []
+
+        def faulty():
+            calls.append(1)
+            y = x @ x
+            if len(calls) == 2:   # the capture; the first call is its warm-up
+                bad(y)
+            return y.sum(0)
+
+        counts = {"eager": 0, "captures": 0, "replays": 0}
+        try:
+            loop.make_cached_epoch(faulty, dev, counts=counts)(3, lambda s: None)
+            raise AssertionError(f"16c {name}: the capture did not fail")
+        except RuntimeError as err:
+            msg = str(err).splitlines()[0]
+        same, capturing = (torch.cuda.current_stream(dev) == stream,
+                           torch.cuda.is_current_stream_capturing())
+        print(f"16c capture that fails ({name}): {msg[:160]}; current stream restored {same}, "
+              f"a stream capturing {capturing}")
+        if not same or capturing:
+            raise AssertionError("a failed capture left its stream current or capturing")
+        tries = []
+        for _ in range(2):
+            counts = {"eager": 0, "captures": 0, "replays": 0}
+            try:
+                got = loop.make_cached_epoch(lambda: (x @ x).sum(0), dev, counts=counts)(
+                    3, lambda s: None)
+                torch.cuda.synchronize()
+                tries.append(bool(torch.equal(got, (x @ x).sum(0).expand(3, -1))
+                                  and counts == {"eager": 1, "captures": 1, "replays": 2}))
+                break
+            except RuntimeError as err:
+                tries.append(str(err).splitlines()[0][:120])
+        print(f"16c after it, a fresh runner (capture, 2 replays, equal to eager): {tries}")
+        if name == "raise" and tries != [True]:
+            raise AssertionError("no fresh capture after a capture that raised")
+
+
+def run_fence(tmp: str, smi: str) -> dict:
+    """Phase 16. Returns the kernel launch counts of its runs' main paths
+    (every run but the sticky one, whose card can no longer be read)."""
+    launches = {}
+
+    def add(res):
+        for name, n in res["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+
+    held = reset_memory()   # the runs' processes share the card with this one's cache
+    print(f"this process holds {held / 2**30:.2f} GiB of the card while the runs train")
+    trap, seconds = build_trap()
+    print(f"built the __trap() kernel {os.path.relpath(trap)} with load_inline in {seconds:.2f} s")
+    phase(f"16a. CycleGAN at {IMG_SIZE}², depth {generator_depth(IMG_SIZE)}, bf16, batch "
+          f"{FENCE_CG[0]}: a fault after a replayed step rewinds in-process; a sticky fault "
+          f"exits {recovery.EXIT_CODE}")
+    x, y = os.path.join(tmp, "x"), os.path.join(tmp, "y")
+    write_noise_pngs(x, FENCE_CG[1], (IMG_SIZE, IMG_SIZE), SEED + 40)
+    write_noise_pngs(y, FENCE_CG[1], (IMG_SIZE, IMG_SIZE), SEED + 41)
+
+    def cg_argv(name, *extra):
+        return ["--input-images", x, "--target-images", y, "--output", os.path.join(tmp, name),
+                "--train", "--epochs", str(FENCE_EPOCHS), "--img-size", str(IMG_SIZE),
+                "--batch-size", str(FENCE_CG[0]), "--test-img", "1", "--dtype", "bf16",
+                "--logging", "false", "--num-devices", "1", "--checkpoint-every",
+                str(FENCE_EVERY), *extra]
+
+    clean = fence_run("cyclegan", "none", cg_argv("cg_clean"))
+    _fence_ok(clean, "16a's clean run")
+    add(clean)
+    print(f"checkpoint saves of the clean run (epoch, GB, GB/s; the anchor holds no Adam state "
+          f"yet), {smi}: " + ", ".join(f"({e}, {n / 1e9:.3f}, {n / t / 1e9:.3f})"
+                                       for e, n, t in clean["saves"]))
+    if not os.path.isdir(os.path.join(clean["run"], "training_checkpoints")) or os.path.isdir(
+            os.path.join(clean["run"], "training_checkpoints", "0")):
+        raise AssertionError("the clean run kept its anchor checkpoint, or saved none")
+    spread = {"cyclegan": None, "pix2pix": None}
+
+    def clean_again(kind, argv):
+        def again():
+            res = fence_run(kind, "none", argv)
+            _fence_ok(res, f"{kind}'s second clean run")
+            add(res)
+            d = fence_diff(res["run"], runs[kind]["run"])
+            shutil.rmtree(res["run"])
+            return d
+        return again
+
+    runs = {"cyclegan": clean}
+    rt = fence_run("cyclegan", "runtime", cg_argv("cg_runtime"))
+    _fence_ok(rt, "16a's run with a RuntimeError")
+    add(rt)
+    if not rt.get("replayed") or len(rt["restores"]) != 1:
+        raise AssertionError("the fault did not strike a replayed step, or the run did not "
+                             "restore once")
+    print(f"RuntimeError after a replayed step of epoch {FENCE_AT[0] + 1}, {smi}: "
+          f"{rt['after'] - rt['fault']:.3f} s from the fault to the end of the first step "
+          f"after the rewind (restore {rt['restores'][0]:.3f} s, then the warm-up step and "
+          f"the recapture, {rt['capture_s']:.3f} s of it)")
+    spread["cyclegan"] = _held("16a's rewound run", fence_diff(rt["run"], clean["run"]),
+                               spread["cyclegan"], clean_again("cyclegan", cg_argv("cg_clean2")))
+    shutil.rmtree(rt["run"])
+
+    sticky = fence_run("cyclegan", "sticky", cg_argv("cg_sticky"), trap)
+    exit_s = sticky["end"] - sticky.get("fault", math.inf)
+    resume_line = f"Resume with the original flags plus: --resume {sticky['run']}"
+    print(f"sticky fault (__trap()) after a replayed step of epoch {FENCE_AT[0] + 1}: exit "
+          f"{sticky['rc']} {exit_s:.3f} s after the fault (limit {STICKY_EXIT_S:g} s), restores "
+          f"{len(sticky['restores'])}, resume line printed {resume_line in sticky['stdout']}, "
+          f"{smi}")
+    if (sticky["rc"] != recovery.EXIT_CODE or not exit_s <= STICKY_EXIT_S or sticky["restores"]
+            or resume_line not in sticky["stdout"] or not sticky.get("replayed")):
+        raise AssertionError(f"the sticky fault did not end in exit {recovery.EXIT_CODE} "
+                             f"without a restore:\n{sticky['stdout'][-3000:]}\n"
+                             f"{sticky['stderr'][-3000:]}")
+    resumed = fence_run("cyclegan", "none", cg_argv("cg_resumed", "--resume", sticky["run"]))
+    _fence_ok(resumed, "16a's --resume of the sticky run")
+    add(resumed)
+    print(f"--resume in a fresh process, {smi}: {resumed['first_step'] - resumed['start']:.3f} s "
+          "from its start to its first step")
+    spread["cyclegan"] = _held("16a's resumed run (epochs 3-4)",
+                               fence_diff(resumed["run"], clean["run"], metrics_from=FENCE_EVERY),
+                               spread["cyclegan"], clean_again("cyclegan", cg_argv("cg_clean2")))
+    for res in (clean, sticky, resumed):
+        shutil.rmtree(res["run"])
+
+    phase(f"16b. Pix2Pix at {IMG_SIZE}², batch {FENCE_P2P[0]}, streamed from the files "
+          "(--host-cache off): a fault after a replayed step rewinds in-process")
+    data = os.path.join(tmp, "pairs")
+    write_noise_pngs(data, FENCE_P2P[1], (IMG_SIZE, 2 * IMG_SIZE), SEED + 42)
+
+    def p2p_argv(name):
+        return ["--data", data, "--output", os.path.join(tmp, name), "--train", "--epochs",
+                str(FENCE_EPOCHS), "--img-size", str(IMG_SIZE), "--batch-size",
+                str(FENCE_P2P[0]), "--test-img", "1", "--dtype", "bf16", "--logging", "false",
+                "--num-devices", "1", "--checkpoint-every", str(FENCE_EVERY), "--host-cache",
+                "off"]
+
+    runs["pix2pix"] = fence_run("pix2pix", "none", p2p_argv("p2p_clean"))
+    _fence_ok(runs["pix2pix"], "16b's clean run")
+    add(runs["pix2pix"])
+    rt = fence_run("pix2pix", "runtime", p2p_argv("p2p_runtime"))
+    _fence_ok(rt, "16b's run with a RuntimeError")
+    add(rt)
+    if not rt.get("replayed") or len(rt["restores"]) != 1:
+        raise AssertionError("the fault did not strike a replayed step, or the run did not "
+                             "restore once")
+    print(f"RuntimeError after a replayed streamed step of epoch {FENCE_AT[0] + 1}, {smi}: "
+          f"{rt['after'] - rt['fault']:.3f} s from the fault to the end of the first step "
+          f"after the rewind (restore {rt['restores'][0]:.3f} s, capture {rt['capture_s']:.3f} s)")
+    _held("16b's rewound run", fence_diff(rt["run"], runs["pix2pix"]["run"]), spread["pix2pix"],
+          clean_again("pix2pix", p2p_argv("p2p_clean2")))
+    for res in (rt, runs["pix2pix"]):
+        shutil.rmtree(res["run"])
+
+    phase("16c. a fault inside a CUDA-graph capture")
+    check_capture_faults()
+    print(f"phase 16 launches, counted on the card: {launches}")
+    if not all(launches.get(name, 0) > 0 for name in SOURCES):
+        raise AssertionError("a kernel of phase 16's paths was never launched")
+    return launches
+
+
 def tf32_off() -> None:
     """fp32 convs and matmuls in full fp32, for the fp32 comparisons."""
     torch.backends.cudnn.allow_tf32 = False
@@ -3049,6 +3452,10 @@ def main() -> int:
     phase("15. data parallelism: NCCL at a world of 1, two gloo ranks on the card, the CLI")
     with tempfile.TemporaryDirectory() as tmp:
         add(run_data_parallel(tmp, smi))
+
+    phase("16. the fault fence: in-process rewinds, a sticky fault's exit 17 and --resume")
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_fence(tmp, smi))
 
     print(f"\nlaunches on the main paths, counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):

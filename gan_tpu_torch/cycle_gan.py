@@ -15,10 +15,15 @@ and ``training_checkpoints/<epoch>/`` (the last 3); in predict mode
 
 ``--resume RUN`` restores the whole training state of RUN's latest
 checkpoint and trains its remaining epochs (the metrics hold the epochs this
-run trained); ``--checkpoint-every N`` also saves every N epochs. gan_tpu's
-fault fence is not ported: a CUDA fault poisons the process's context, so a
-failed run is resumed by a new process with ``--resume``, and there is no
-in-process rewind, epoch-0 anchor checkpoint or exit code 17.
+run trained); ``--checkpoint-every N`` also saves every N epochs. Every
+epoch runs inside gan_tpu's fault fence (gan_tpu_torch.train.recovery): an
+anchor checkpoint before the first epoch (deleted by the next save), and on a
+device fault (a CUDA error that leaves the context alive, out-of-memory, a
+host OSError of a streamed epoch) an in-process rewind to the last
+checkpoint, at most ``GAN_TPU_FAULT_RETRIES`` times (default 3; 0 turns the
+fence off). When the retries run out, the context is lost (a sticky CUDA
+error) or the world holds more than one rank, the run prints the fault and
+``Resume with the original flags plus: --resume <run>`` and exits 17.
 ``--host-cache off`` (or ``auto`` when the decoded corpus would exceed half
 of the host's available memory) streams train, val and predict batches
 straight from the files through FileCaches; the test images stay in
@@ -62,6 +67,7 @@ from gan_tpu_torch.data.split import cyclegan_split, list_images
 from gan_tpu_torch.parallel import Replicas, launch
 from gan_tpu_torch.train.checkpoint import CheckpointManager, latest_checkpoint_dir
 from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
+from gan_tpu_torch.train.recovery import TrainingFault, exit_for_resume
 from gan_tpu_torch.utils import (dump_json, make_run_dirs, redirect_logging, silence,
                                  write_loss_figs)
 
@@ -126,9 +132,12 @@ def run(cfg: CycleGANConfig, replicas: Replicas) -> None:
             start_epoch = src.latest_epoch() or 0
             trainer.load_state(src.restore(map_location="cpu"))
             print(f"Resumed from {cfg.resume} at epoch {start_epoch}", flush=True)
-        train_metrics, val_metrics = trainer.fit(train_x, train_y, val_x, val_y, test_cache,
-                                                 dirs.root, checkpoint_manager=manager,
-                                                 start_epoch=start_epoch)
+        try:
+            train_metrics, val_metrics = trainer.fit(train_x, train_y, val_x, val_y, test_cache,
+                                                     dirs.root, checkpoint_manager=manager,
+                                                     start_epoch=start_epoch)
+        except TrainingFault as fault:   # the fence could not rewind: resume in a new process
+            exit_for_resume(fault, dirs.root, lead)
         if lead:
             os.makedirs(dirs.final_test_imgs, exist_ok=True)
             test_norm = test_cache.astype("float32") / 127.5 - 1.0

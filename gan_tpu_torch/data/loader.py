@@ -263,6 +263,17 @@ def prefetch_iter(it, depth: int = 2):
     return gen
 
 
+def zip_closing(iterators: list):
+    """``zip(*iterators)`` as a generator that closes every iterator when it
+    ends, is closed or is dropped (a ``zip`` has no ``close``), so that the
+    FileCache epochs under it end their threads with it."""
+    try:
+        yield from zip(*iterators)
+    finally:
+        for it in iterators:
+            _close(it)
+
+
 def _passthrough(it):
     try:
         yield from it

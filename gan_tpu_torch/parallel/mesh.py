@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from gan_tpu_torch.device import default_device
+from gan_tpu_torch.train import recovery
 
 DEFAULT_TIMEOUT = timedelta(minutes=30)   # torch's own default for a gloo group
 
@@ -222,7 +223,9 @@ def launch(fn: Callable, cfg, *, timeout: timedelta = DEFAULT_TIMEOUT):
     one runs in this process, and a larger one in as many spawned
     processes, which meet through a ``FileStore`` in ``cfg.output``
     (removed when they end); a rank that fails ends the others and raises
-    here."""
+    here, and a rank that exits 17 (a fault the fence could not rewind, its
+    resume line printed; train/recovery.py) ends the others and exits 17
+    here too."""
     device = default_device()
     if not cfg.train:
         return fn(cfg, Replicas(device=device))
@@ -247,6 +250,10 @@ def launch(fn: Callable, cfg, *, timeout: timedelta = DEFAULT_TIMEOUT):
     try:
         torch.multiprocessing.start_processes(_spawned, args=(fn, cfg, size, store_path, timeout),
                                               nprocs=size, start_method="spawn")
+    except torch.multiprocessing.ProcessExitedException as err:
+        if err.exit_code == recovery.EXIT_CODE:
+            raise SystemExit(recovery.EXIT_CODE) from None
+        raise
     finally:
         if os.path.exists(store_path):
             os.remove(store_path)

@@ -42,6 +42,11 @@ the device that ``prepare`` fills before each step; the partial last batch
 runs eagerly. So a streamed epoch equals the resident one bit for bit on the
 CPU.
 
+**Faults** (:mod:`gan_tpu_torch.train.recovery`): both trainers' ``fit`` run
+each epoch's body through ``_fenced_epochs``, gan_tpu's fenced loop: an anchor
+checkpoint first, and on a device fault a rewind to the latest checkpoint,
+with the metric lists cut to match.
+
 **Data parallelism** (gan_tpu_torch.parallel, gan_tpu's shard_map steps): a
 trainer built with :class:`~gan_tpu_torch.parallel.Replicas` of W > 1 is one
 replica of W, one process each, in one process group. Its parameters and
@@ -86,6 +91,7 @@ from gan_tpu_torch.models.blocks import keep_mask
 from gan_tpu_torch.parallel import Replicas, stripe_rows
 from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.optim import adam
+from gan_tpu_torch.train.recovery import FaultFence
 from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import Throughput, profile_dir_from_env, trace
 
@@ -362,6 +368,29 @@ class GANTrainer:
             print(f"[perf] epoch {epoch + 1}: {rate:.1f} {unit}/sec "
                   f"({rate / perf.n_devices:.1f}/chip)", flush=True)
         return out
+
+    def _fenced_epochs(self, body: Callable[[int], None], manager, start_epoch: int,
+                       costs: tuple) -> None:
+        """``body(epoch)`` for each epoch from ``start_epoch`` to the last,
+        inside a :class:`~gan_tpu_torch.train.recovery.FaultFence` (gan_tpu's
+        ``fit`` loop): first an anchor checkpoint at ``start_epoch`` where
+        ``manager`` holds none; on a fault the fence rewinds to the latest
+        checkpoint and each metric list of ``costs`` (dicts of per-epoch
+        lists) is cut to the epochs before it, or it raises TrainingFault."""
+        fence = FaultFence(self, manager)
+        if manager is not None and manager.latest_epoch() is None:
+            manager.save(start_epoch, self.state(), anchor=True)
+        epoch = start_epoch
+        while epoch < self.config.epochs:
+            try:
+                body(epoch)
+            except Exception as e:
+                epoch = fence.recover(epoch, e)
+                for cost in costs:
+                    for values in cost.values():
+                        del values[epoch - start_epoch:]
+                continue
+            epoch += 1
 
     def _checkpoint_every(self, done: int, manager) -> None:
         """``--checkpoint-every N``: a save after every N epochs besides the

@@ -27,6 +27,7 @@ class CheckpointManager:
             raise ValueError(f"max_to_keep must be at least 1, got {max_to_keep}")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self._anchor: Optional[int] = None   # the epoch of an anchor save not yet deleted
 
     def all_epochs(self) -> list[int]:
         if not os.path.isdir(self.directory):
@@ -41,7 +42,7 @@ class CheckpointManager:
                 "the run with tools/convert_gan_tpu_checkpoint.py first")
         return epochs
 
-    def save(self, epoch: int, state: Any) -> None:
+    def save(self, epoch: int, state: Any, *, anchor: bool = False) -> None:
         """Write ``<dir>/<epoch>/state.pt`` (via a temp dir and a rename, so a
         reader never sees half a checkpoint), then prune to ``max_to_keep``."""
         final = os.path.join(self.directory, str(epoch))
@@ -53,6 +54,11 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_epochs()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
+        if anchor:
+            self._anchor = epoch
+        elif self._anchor is not None and epoch != self._anchor:
+            shutil.rmtree(os.path.join(self.directory, str(self._anchor)), ignore_errors=True)
+            self._anchor = None
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self.all_epochs()

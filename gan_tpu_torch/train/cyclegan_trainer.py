@@ -56,10 +56,11 @@ one step per zipped batch. The full steps run through the cached epoch
 runner (a CUDA graph of the step on the card, gan_tpu's compiled epoch;
 train/base.py), the zip tail, whose X and Y widths may differ, as an eager
 step (gan_tpu's ``_run_remainder``). ``fit`` resumes at ``start_epoch``
-(``--resume``) and saves every ``--checkpoint-every`` epochs. gan_tpu's
-hybrid tier, epoch segments and the fault fence's in-process rewind are not
-ported: a CUDA fault poisons the process's context, so recovery on the card
-is a new process with ``--resume``.
+(``--resume``), saves every ``--checkpoint-every`` epochs and runs every
+epoch inside gan_tpu's fault fence (train/recovery.py): a fault rewinds to
+the last checkpoint in-process, and the per-epoch shuffles and draws, pure
+in (seed, epoch, step), are drawn again exactly. gan_tpu's hybrid tier and
+epoch segments are not ported.
 
 **Data parallelism** (train/base.py): over W replicas each domain's epoch
 order is drawn per stripe (``loop.shuffled_stripe_perm``, ``--buffer-size``
@@ -82,7 +83,7 @@ import torch
 from gan_tpu_torch.config import CycleGANConfig
 from gan_tpu_torch.data.augment import (JITTER_PAD, jitter_draws, normalize_batch,
                                         single_jitter_batch)
-from gan_tpu_torch.data.loader import device_bytes
+from gan_tpu_torch.data.loader import device_bytes, zip_closing
 from gan_tpu_torch.losses import (CYCLEGAN_LOSS_KEYS, cycle_loss, discriminator_loss,
                                   empty_losses, generator_adversarial_loss, identity_loss)
 from gan_tpu_torch.models import PatchGANDiscriminator, UNetGenerator
@@ -267,8 +268,8 @@ class CycleGANTrainer(GANTrainer):
         stream = 0 if training else 1
         orders = self._orders((nx, ny), full, tail, loop.epoch_rng(cfg.seed, epoch, stream))
         if not isinstance(x, (torch.Tensor, Stripe)):
-            batches = zip(*(self._rank_batches(c, local.reshape(-1) * w + r, left)
-                            for c, (local, left) in zip((x, y), orders)))
+            batches = zip_closing([self._rank_batches(c, local.reshape(-1) * w + r, left)
+                                   for c, (local, left) in zip((x, y), orders)])
             losses = self._streamed_epoch((x, y), batches, full, tail, epoch, training)
             return torch.cat(losses).cpu().numpy()
         caches = (x, y)
@@ -308,7 +309,8 @@ class CycleGANTrainer(GANTrainer):
         writes = self.replicas.rank == 0   # only rank 0 writes samples
         # pairs consumed: the zip tail is partial, so it is not counted full
         pairs = lambda tr: min(tr.shape[0] * cfg.batch_size, len(train_x), len(train_y))
-        for epoch in range(start_epoch, cfg.epochs):
+
+        def epoch_body(epoch: int) -> None:
             tr = self._timed_epoch(
                 lambda: self.run_epoch(*train_src, epoch, training=True),
                 epoch, start_epoch, perf, pairs, "image-pairs")
@@ -342,6 +344,8 @@ class CycleGANTrainer(GANTrainer):
                   f"val discriminator X loss: {round(val_cost['Discriminator X Loss'][-1], 2)}")
             print(f"Val Y->X generator loss: {round(val_cost['Total Y->X Generator Loss'][-1], 2)}, "
                   f"val discriminator Y loss: {round(val_cost['Discriminator Y Loss'][-1], 2)}\n")
+
+        self._fenced_epochs(epoch_body, checkpoint_manager, start_epoch, (train_cost, val_cost))
         return train_cost, val_cost
 
     # --------------------------------------------------------------- predict

@@ -215,10 +215,14 @@ class CachedEpoch:
         # destructor would call the CUDA runtime, which the capture forbids
         collecting = gc.isenabled()
         gc.disable()
+        stream = torch.cuda.current_stream(self.device)
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.step_fn()
         except RuntimeError as err:
+            # where ending the capture raises, torch.cuda.graph leaves its
+            # capture stream current: the re-run of a rewind starts on ours
+            torch.cuda.set_stream(stream)
             raise RuntimeError(f"capturing the epoch step into a CUDA graph failed: {err}") from err
         finally:
             if collecting:

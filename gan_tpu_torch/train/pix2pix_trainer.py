@@ -26,10 +26,10 @@ exact-size remainder as an eager step of its own (gan_tpu's
 The uint8 caches live whole on the device when they fit, or stream from the
 host (``--device-cache off``, or a FileCache under ``--host-cache off``) in
 the same order and with the same draws (train/base.py). ``fit`` resumes at
-``start_epoch`` (``--resume``) and saves every ``--checkpoint-every``
-epochs. gan_tpu's hybrid tier, epoch segments and the fault fence's
-in-process rewind are not ported: a CUDA fault poisons the process's
-context, so recovery on the card is a new process with ``--resume``.
+``start_epoch`` (``--resume``), saves every ``--checkpoint-every`` epochs
+and runs every epoch inside gan_tpu's fault fence (train/recovery.py): a
+fault rewinds to the last checkpoint in-process and the epochs re-run
+exactly. gan_tpu's hybrid tier and epoch segments are not ported.
 
 **Data parallelism** (train/base.py): over W replicas, global step s takes
 rows [s·B, (s+1)·B), replica r the B / W of them that its stripe holds
@@ -226,7 +226,8 @@ class Pix2PixTrainer(GANTrainer):
         val_cost = empty_losses(PIX2PIX_LOSS_KEYS)
         perf = Throughput(self.replicas.size)
         writes = self.replicas.rank == 0   # only rank 0 writes samples
-        for epoch in range(start_epoch, cfg.epochs):
+
+        def epoch_body(epoch: int) -> None:
             tr = self._timed_epoch(lambda: self.run_epoch(train_src, epoch, training=True),
                                    epoch, start_epoch, perf, lambda _: train_cache.shape[0],
                                    "images")
@@ -256,6 +257,8 @@ class Pix2PixTrainer(GANTrainer):
                   f"train discriminator loss: {round(train_cost['Discriminator Loss'][-1], 2)}")
             print(f"Val generator loss: {round(val_cost['Generator Total Loss'][-1], 2)}, "
                   f"val discriminator loss: {round(val_cost['Discriminator Loss'][-1], 2)}\n")
+
+        self._fenced_epochs(epoch_body, checkpoint_manager, start_epoch, (train_cost, val_cost))
         return train_cost, val_cost
 
     # --------------------------------------------------------------- predict

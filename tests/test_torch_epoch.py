@@ -308,15 +308,16 @@ def _fit_with_stub_epochs(trainer, tmp_path, manager=None, start_epoch: int = 0,
 def test_checkpoint_every_saves_where_gan_tpu_does(monkeypatch, tmp_path, kind, every, saved):
     """4 epochs with ``--checkpoint-every 3``: a save after epoch 3, and the
     final one after epoch 4. With 5: only the final save, never the same
-    epoch twice (gan_tpu/train/pix2pix_trainer.py:591-594)."""
+    epoch twice (gan_tpu/train/pix2pix_trainer.py:591-594). Before them the
+    fault fence's anchor at epoch 0, which the first of them deletes."""
     trainer = _trainer(kind, "--checkpoint-every", str(every))
     calls = []
     real_save = CheckpointManager.save
-    monkeypatch.setattr(CheckpointManager, "save", lambda self, epoch, state: calls.append(
-        epoch) or real_save(self, epoch, state))
+    monkeypatch.setattr(CheckpointManager, "save", lambda self, epoch, state, **kw: calls.append(
+        (epoch, kw.get("anchor", False))) or real_save(self, epoch, state, **kw))
     manager = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=3)
     _fit_with_stub_epochs(trainer, tmp_path, manager)
-    assert calls == saved
+    assert calls == [(0, True)] + [(epoch, False) for epoch in saved]
     assert manager.all_epochs() == saved
 
 

@@ -1,12 +1,14 @@
-"""The spawned ranks of tests/test_torch_dist.py: jax-free, so that a child
-process imports torch and the port only.
+"""The spawned ranks of tests/test_torch_dist.py and
+tests/test_torch_recovery.py: jax-free, so that a child process imports
+torch and the port only.
 
 ``start(name, tmp, size, *args)`` spawns ``size`` ranks that meet over gloo
 through a FileStore in ``tmp`` (no TCP port, so parallel test workers
 cannot collide), each with one torch thread and a group timeout; each rank
 runs ``name(replicas, tmp, *args)`` from this module and saves what it
 returns to ``tmp/rank<r>.pt``. ``finish`` joins them within a time limit and
-loads the results."""
+loads the results. ``fault_main(argv)`` runs the Pix2Pix CLI through
+``parallel.launch`` with a fault injected on rank 1."""
 
 from __future__ import annotations
 
@@ -194,3 +196,33 @@ def cli_runs(replicas, tmp: str, data: str, x: str, y: str) -> dict:
     (stamp,) = os.listdir(out)
     runs["cyclegan"] = os.path.join("cyclegan", stamp)
     return {"runs": runs, "cyclegan_argv": argv}
+
+
+def fault_on_rank_1(cfg, replicas) -> None:
+    """The Pix2Pix CLI's ``run`` on one rank of ``fault_main``'s world, rank 1
+    raising a fault as its 2nd train epoch starts (a spawned rank does not
+    inherit the test's monkeypatches)."""
+    from gan_tpu_torch import pix2pix
+    from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
+
+    if replicas.rank == 1:
+        real, calls = Pix2PixTrainer.run_epoch, []
+
+        def run_epoch(self, *args, training):
+            if training:
+                calls.append(args[-1])
+                if len(calls) == 2:
+                    raise RuntimeError("injected fault on rank 1")
+            return real(self, *args, training=training)
+
+        Pix2PixTrainer.run_epoch = run_epoch
+    pix2pix.run(cfg, replicas)
+
+
+def fault_main(argv: list) -> None:
+    """The Pix2Pix CLI's ``main`` on ``argv`` through ``parallel.launch``, each
+    rank ``fault_on_rank_1``."""
+    from gan_tpu_torch import parallel
+    from gan_tpu_torch.config import parse_pix2pix
+
+    parallel.launch(fault_on_rank_1, parse_pix2pix(argv))
