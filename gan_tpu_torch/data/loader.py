@@ -24,6 +24,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 import weakref
 from typing import Optional, Sequence
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from gan_tpu_torch.data.pipeline import Rows
+from gan_tpu_torch.utils.profiling import COUNTERS
 
 # gan_tpu's estimate of a device's memory where the backend reports none (the CPU)
 FALLBACK_DEVICE_BYTES = 12 << 30
@@ -151,7 +153,9 @@ class FileCache:
     deterministic per-file work (decode, split, resize); the random augment
     runs on the device per batch. An :meth:`epoch` decodes each batch with
     one call of ``rows`` (by default one native call, its threads off the
-    GIL) on a producer thread, ``PREFETCH_BATCHES`` ahead of its consumer.
+    GIL) on a producer thread, ``PREFETCH_BATCHES`` ahead of its consumer,
+    and adds the files and the call's seconds to ``COUNTERS``
+    (``decode.files``, ``decode.seconds``).
     The producer belongs to one epoch: it starts with its first batch and
     ends when the epoch ends, is closed or is dropped, so an idle FileCache
     holds no thread. gan_tpu's ``drop_remainder`` and ``rows`` are not
@@ -182,7 +186,12 @@ class FileCache:
                 for lo in range(0, len(idx), b):
                     if stop.is_set():
                         return
-                    if not _put(q, self.rows([self.paths[int(i)] for i in idx[lo:lo + b]]), stop):
+                    paths = [self.paths[int(i)] for i in idx[lo:lo + b]]
+                    t = time.perf_counter()
+                    batch = self.rows(paths)
+                    COUNTERS.add("decode.seconds", time.perf_counter() - t)
+                    COUNTERS.add("decode.files", len(paths))
+                    if not _put(q, batch, stop):
                         return
                 _put(q, _DONE, stop)
             except BaseException as e:   # surface decode errors to the consumer

@@ -78,6 +78,7 @@ import contextlib
 import itertools
 import math
 import os
+import time
 import weakref
 from typing import Callable, NamedTuple, Optional
 
@@ -93,7 +94,7 @@ from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.optim import adam
 from gan_tpu_torch.train.recovery import FaultFence
 from gan_tpu_torch.utils.grids import save_image_grid
-from gan_tpu_torch.utils.profiling import Throughput, profile_dir_from_env, trace
+from gan_tpu_torch.utils.profiling import COUNTERS, profile_dir_from_env, span, trace
 
 
 PREDICT_CHUNK = 64   # images predict decodes, infers and writes at a time, as gan_tpu does
@@ -274,12 +275,13 @@ class GANTrainer:
         runner, idx, draws = self._runners[key]
 
         def prepare(s: int) -> None:
-            if fill is not None:
-                fill()
-            for buf, r in zip(idx, rows):
-                buf.copy_(r[s])
-            for buf, t in zip(draws.tensors(), self._step_draws(epoch, stream, s).tensors()):
-                buf.copy_(t)
+            with span("gan_tpu_torch.runner.prepare"):
+                if fill is not None:
+                    fill()
+                for buf, r in zip(idx, rows):
+                    buf.copy_(r[s])
+                for buf, t in zip(draws.tensors(), self._step_draws(epoch, stream, s).tensors()):
+                    buf.copy_(t)
 
         return runner(n_steps, prepare)
 
@@ -296,6 +298,15 @@ class GANTrainer:
         raises."""
         b = self.local_batch
         losses = []
+
+        def wait(it):
+            t = time.perf_counter()
+            with span("gan_tpu_torch.data.wait"):
+                arrays = next(it)
+            COUNTERS.add("data.wait_seconds", time.perf_counter() - t)
+            COUNTERS.add("data.waits", 1)
+            return arrays
+
         with contextlib.closing(loader.prefetch_iter(batches, depth=2)) as it:
             if full:
                 shapes = tuple((b, *c.shape[1:]) for c in caches)
@@ -304,10 +315,12 @@ class GANTrainer:
                 inp = self._streams[training, shapes]
                 rows = tuple(torch.arange(b, device=self.device).expand(full, b) for _ in caches)
                 losses.append(self._cached_epoch(inp.buffers, rows, epoch, training,
-                                                 fill=lambda: inp.load(next(it))))
+                                                 fill=lambda: inp.load(wait(it))))
             if tail:
-                u8 = (self._to_device(a) for a in next(it))
-                losses.append(self._step(*u8, epoch, 0 if training else 1, full)[None])
+                arrays = wait(it)
+                with span("gan_tpu_torch.step.eager"):
+                    u8 = [self._to_device(a) for a in arrays]
+                    losses.append(self._step(*u8, epoch, 0 if training else 1, full)[None])
         return losses
 
     def _plan_caches(self, groups: list[tuple]) -> list[tuple]:
@@ -354,19 +367,33 @@ class GANTrainer:
         return cache[torch.from_numpy(rows).to(self.device)]
 
     def _timed_epoch(self, run: Callable[[], np.ndarray], epoch: int, start_epoch: int,
-                     perf: Throughput, images: Callable[[np.ndarray], int], unit: str):
+                     images: Callable[[np.ndarray], int], unit: str):
         """``run()`` (the train epoch), traced into ``GAN_TPU_PROFILE_DIR`` at
         epoch start_epoch + 1 and timed to the card's synchronisation; under
-        ``GAN_TPU_PERF=1`` it prints the epoch's rate, as gan_tpu does."""
-        perf.start()
+        ``GAN_TPU_PERF=1`` it prints the epoch's rate, as gan_tpu does, and
+        then the epoch's own share of ``COUNTERS`` and ``epoch_counts``: the
+        main thread's waits on streamed batches and their seconds, the
+        decoder's files per second of its busy time, the steps run eagerly,
+        the captures and replays, and the captures' seconds."""
+        counters, steps = COUNTERS.snapshot(), dict(self.epoch_counts)
+        t0 = time.perf_counter()
         with trace(profile_dir_from_env() if epoch == start_epoch + 1 else None):
             out = run()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        rate = perf.stop(images(out))
+        dt = time.perf_counter() - t0
         if os.environ.get("GAN_TPU_PERF") == "1":
+            rate = images(out) / dt if dt > 0 else float("inf")
+            now = COUNTERS.snapshot()
+            d = lambda k: now.get(k, 0) - counters.get(k, 0)
+            files_per_s = d("decode.files") / d("decode.seconds") if d("decode.seconds") else 0.0
+            runs = ", ".join(f"{k} {self.epoch_counts[k] - steps[k]}"
+                             for k in ("eager", "captures", "replays"))
             print(f"[perf] epoch {epoch + 1}: {rate:.1f} {unit}/sec "
-                  f"({rate / perf.n_devices:.1f}/chip)", flush=True)
+                  f"({rate / self.replicas.size:.1f}/chip); data wait "
+                  f"{d('data.wait_seconds'):.3f} s in {d('data.waits')} waits, decode "
+                  f"{files_per_s:.1f} files/s, {runs}, capture "
+                  f"{d('runner.capture_seconds'):.2f} s", flush=True)
         return out
 
     def _fenced_epochs(self, body: Callable[[int], None], manager, start_epoch: int,

@@ -93,7 +93,7 @@ from gan_tpu_torch.train.base import GANTrainer, StepDraws, Stripe, generator_de
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.train.pix2pix_trainer import use_remat
 from gan_tpu_torch.utils.grids import save_image_grid
-from gan_tpu_torch.utils.profiling import Throughput
+from gan_tpu_torch.utils.profiling import span
 
 NETWORKS = ("gen_g", "gen_f", "disc_x", "disc_y")
 GRADIENT_GROUPS = (("gen_g", "gen_f"), ("disc_x", "disc_y"))
@@ -259,31 +259,38 @@ class CycleGANTrainer(GANTrainer):
         last step may be the zip tail, a partial batch whose X and Y widths
         may differ, run eagerly. Returns (steps, 7) losses, fetched from the
         device once; over replicas, their means."""
-        cfg = self.config
-        w, r = self.replicas.size, self.replicas.rank
-        nx, ny = x.shape[0], y.shape[0]
-        full, tail = loop.epoch_plan(min(nx, ny), cfg.batch_size, w)
-        if full + (tail > 0) == 0:
-            return np.zeros((0, len(CYCLEGAN_LOSS_KEYS)), np.float32)
-        stream = 0 if training else 1
-        orders = self._orders((nx, ny), full, tail, loop.epoch_rng(cfg.seed, epoch, stream))
-        if not isinstance(x, (torch.Tensor, Stripe)):
-            batches = zip_closing([self._rank_batches(c, local.reshape(-1) * w + r, left)
-                                   for c, (local, left) in zip((x, y), orders)])
-            losses = self._streamed_epoch((x, y), batches, full, tail, epoch, training)
-            return torch.cat(losses).cpu().numpy()
-        caches = (x, y)
-        losses = []
-        if full:
-            rows = tuple(torch.from_numpy(local).to(self.device) for local, _ in orders)
-            losses.append(self._cached_epoch(
-                tuple(c.local if isinstance(c, Stripe) else c for c in caches), rows, epoch,
-                training))
-        if tail:
-            losses.append(self._step(*(self._tail_rows(c, left)
-                                       for c, (_, left) in zip(caches, orders)),
-                                     epoch, stream, full)[None])
-        return torch.cat(losses).cpu().numpy()
+        with span("gan_tpu_torch.epoch"):
+            cfg = self.config
+            w, r = self.replicas.size, self.replicas.rank
+            nx, ny = x.shape[0], y.shape[0]
+            resident = isinstance(x, (torch.Tensor, Stripe))
+            with span("gan_tpu_torch.epoch.plan"):
+                full, tail = loop.epoch_plan(min(nx, ny), cfg.batch_size, w)
+                if full + (tail > 0) == 0:
+                    return np.zeros((0, len(CYCLEGAN_LOSS_KEYS)), np.float32)
+                stream = 0 if training else 1
+                orders = self._orders((nx, ny), full, tail,
+                                      loop.epoch_rng(cfg.seed, epoch, stream))
+                if resident and full:
+                    rows = tuple(torch.from_numpy(local).to(self.device) for local, _ in orders)
+            if not resident:
+                batches = zip_closing([self._rank_batches(c, local.reshape(-1) * w + r, left)
+                                       for c, (local, left) in zip((x, y), orders)])
+                losses = self._streamed_epoch((x, y), batches, full, tail, epoch, training)
+            else:
+                caches = (x, y)
+                losses = []
+                if full:
+                    losses.append(self._cached_epoch(
+                        tuple(c.local if isinstance(c, Stripe) else c for c in caches), rows,
+                        epoch, training))
+                if tail:
+                    with span("gan_tpu_torch.step.eager"):
+                        losses.append(self._step(*(self._tail_rows(c, left)
+                                                   for c, (_, left) in zip(caches, orders)),
+                                                 epoch, stream, full)[None])
+            with span("gan_tpu_torch.epoch.fetch"):
+                return torch.cat(losses).cpu().numpy()
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_x, train_y, val_x, val_y, test_cache: np.ndarray, output_path: str,
@@ -305,7 +312,6 @@ class CycleGANTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
         val_cost = empty_losses(CYCLEGAN_LOSS_KEYS)
-        perf = Throughput(self.replicas.size)
         writes = self.replicas.rank == 0   # only rank 0 writes samples
         # pairs consumed: the zip tail is partial, so it is not counted full
         pairs = lambda tr: min(tr.shape[0] * cfg.batch_size, len(train_x), len(train_y))
@@ -313,7 +319,7 @@ class CycleGANTrainer(GANTrainer):
         def epoch_body(epoch: int) -> None:
             tr = self._timed_epoch(
                 lambda: self.run_epoch(*train_src, epoch, training=True),
-                epoch, start_epoch, perf, pairs, "image-pairs")
+                epoch, start_epoch, pairs, "image-pairs")
             print("." * (tr.shape[0] // 100), end="", flush=True)
             va = self.run_epoch(*val_src, epoch, training=False)
             for i, k in enumerate(CYCLEGAN_LOSS_KEYS):

@@ -26,6 +26,12 @@ collective, which NCCL needs before a capture. A gloo group's collectives
 run on the host and cannot be captured, so with one the runner runs every
 step eagerly on the card, by that rule (``capture=False``), and counts them.
 
+While the profiler records, each step opens a span of
+``gan_tpu_torch.utils.profiling`` on the host: ``runner.replay``,
+``step.eager``, or ``runner.capture`` around the capture, from outside it,
+so that nothing inside the captured step records a range the replays would
+not; ``StreamBuffers.load`` opens ``data.h2d``.
+
 The port keeps its own copy of the numpy part because gan_tpu's module
 imports jax.
 """
@@ -38,6 +44,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from gan_tpu_torch.utils.profiling import COUNTERS, span
 
 
 def epoch_rng(seed: int, epoch: int, stream: int = 0) -> np.random.Generator:
@@ -179,17 +187,17 @@ class CachedEpoch:
         return losses
 
     def _step(self) -> torch.Tensor:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.counts["eager"] += 1
-            return self.step_fn()
-        if not self.capture:
-            self.counts["eager"] += 1
-            self.counts["eager_by_backend"] += 1
-            return self.step_fn()
+            if self.device.type == "cuda":
+                self.counts["eager_by_backend"] += 1
+            with span("gan_tpu_torch.step.eager"):
+                return self.step_fn()
         if self.graph is None:
             return self._warm_up_and_capture()
         try:
-            self.graph.replay()
+            with span("gan_tpu_torch.runner.replay"):
+                self.graph.replay()
         except RuntimeError as err:
             raise RuntimeError(f"replaying the captured epoch step failed: {err}") from err
         self.counts["replays"] += 1
@@ -198,7 +206,7 @@ class CachedEpoch:
     def _warm_up_and_capture(self) -> torch.Tensor:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), span("gan_tpu_torch.step.eager"):
             losses = self.step_fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.counts["eager"] += 1
@@ -217,7 +225,7 @@ class CachedEpoch:
         gc.disable()
         stream = torch.cuda.current_stream(self.device)
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with span("gan_tpu_torch.runner.capture"), torch.cuda.graph(graph, pool=self.pool):
                 out = self.step_fn()
         except RuntimeError as err:
             # where ending the capture raises, torch.cuda.graph leaves its
@@ -228,6 +236,7 @@ class CachedEpoch:
             if collecting:
                 gc.enable()
         self.capture_s = time.perf_counter() - t0
+        COUNTERS.add("runner.capture_seconds", self.capture_s)
         self.graph, self._out = graph, out
         self.counts["captures"] += 1
         return losses
@@ -267,17 +276,18 @@ class StreamBuffers:
 
     def load(self, arrays) -> None:
         """Copy one host batch, a uint8 array per domain, into the buffers."""
-        if self.device.type != "cuda":
-            for buf, a in zip(self.buffers, arrays):
-                buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
-            return
-        k = self.loads % self.SLOTS
-        self.loads += 1
-        self.copied[k].synchronize()   # its copy of SLOTS batches ago; no-op before the first
-        for slot, buf, a in zip(self.slots[k], self.buffers, arrays):
-            np.copyto(slot.numpy(), a)
-            buf.copy_(slot, non_blocking=True)
-        self.copied[k].record()
+        with span("gan_tpu_torch.data.h2d"):
+            if self.device.type != "cuda":
+                for buf, a in zip(self.buffers, arrays):
+                    buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                return
+            k = self.loads % self.SLOTS
+            self.loads += 1
+            self.copied[k].synchronize()   # its copy of SLOTS batches ago; no-op before the first
+            for slot, buf, a in zip(self.slots[k], self.buffers, arrays):
+                np.copyto(slot.numpy(), a)
+                buf.copy_(slot, non_blocking=True)
+            self.copied[k].record()
 
 
 def make_cached_epoch(step_fn: Callable[[], torch.Tensor], device: torch.device, *,

@@ -67,7 +67,7 @@ from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.base import GANTrainer, StepDraws, Stripe, generator_depth
 from gan_tpu_torch.train.checkpoint import CheckpointManager
 from gan_tpu_torch.utils.grids import save_image_grid
-from gan_tpu_torch.utils.profiling import Throughput
+from gan_tpu_torch.utils.profiling import span
 
 NETWORKS = ("gen", "disc")
 GRADIENT_GROUPS = (("gen",), ("disc",))
@@ -179,29 +179,36 @@ class Pix2PixTrainer(GANTrainer):
         a :class:`~gan_tpu_torch.train.base.Stripe` (resident), or a host
         ndarray or FileCache (streamed). Returns (steps, 4) losses, fetched
         from the device once; over replicas, their means."""
-        w, r, b = self.replicas.size, self.replicas.rank, self.local_batch
-        n = cache.shape[0]
-        full, tail = loop.epoch_plan(n, self.config.batch_size, w)
-        # the rows of this replica's stripe that each full step takes
-        local = loop.local_perm(n, ndev=w, n_steps=full, per_dev_batch=b)[:, r * b:(r + 1) * b]
-        if isinstance(cache, (torch.Tensor, Stripe)):
-            losses = []
-            if full:
-                rows = torch.from_numpy(local.astype(np.int64)).to(self.device)
-                losses.append(self._cached_epoch(
-                    (cache.local if isinstance(cache, Stripe) else cache,), (rows,), epoch,
-                    training))
-            if tail:
-                losses.append(self._step(self._tail_rows(cache, np.arange(n - tail, n)), epoch,
-                                         0 if training else 1, full)[None])
-        else:
-            batches = self._rank_batches(cache, local.reshape(-1).astype(np.int64) * w + r,
-                                         np.arange(n - tail, n))
-            losses = self._streamed_epoch((cache,), ((u8,) for u8 in batches), full, tail,
-                                          epoch, training)
-        if not losses:
-            return np.zeros((0, len(PIX2PIX_LOSS_KEYS)), np.float32)
-        return torch.cat(losses).cpu().numpy()
+        with span("gan_tpu_torch.epoch"):
+            w, r, b = self.replicas.size, self.replicas.rank, self.local_batch
+            n = cache.shape[0]
+            resident = isinstance(cache, (torch.Tensor, Stripe))
+            with span("gan_tpu_torch.epoch.plan"):
+                full, tail = loop.epoch_plan(n, self.config.batch_size, w)
+                # the rows of this replica's stripe that each full step takes
+                local = loop.local_perm(n, ndev=w, n_steps=full,
+                                        per_dev_batch=b)[:, r * b:(r + 1) * b]
+                if resident and full:
+                    rows = torch.from_numpy(local.astype(np.int64)).to(self.device)
+            if resident:
+                losses = []
+                if full:
+                    losses.append(self._cached_epoch(
+                        (cache.local if isinstance(cache, Stripe) else cache,), (rows,), epoch,
+                        training))
+                if tail:
+                    with span("gan_tpu_torch.step.eager"):
+                        losses.append(self._step(self._tail_rows(cache, np.arange(n - tail, n)),
+                                                 epoch, 0 if training else 1, full)[None])
+            else:
+                batches = self._rank_batches(cache, local.reshape(-1).astype(np.int64) * w + r,
+                                             np.arange(n - tail, n))
+                losses = self._streamed_epoch((cache,), ((u8,) for u8 in batches), full, tail,
+                                              epoch, training)
+            if not losses:
+                return np.zeros((0, len(PIX2PIX_LOSS_KEYS)), np.float32)
+            with span("gan_tpu_torch.epoch.fetch"):
+                return torch.cat(losses).cpu().numpy()
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_cache, val_cache, test_cache: np.ndarray,
@@ -224,13 +231,11 @@ class Pix2PixTrainer(GANTrainer):
         start = time.time()
         train_cost = empty_losses(PIX2PIX_LOSS_KEYS)
         val_cost = empty_losses(PIX2PIX_LOSS_KEYS)
-        perf = Throughput(self.replicas.size)
         writes = self.replicas.rank == 0   # only rank 0 writes samples
 
         def epoch_body(epoch: int) -> None:
             tr = self._timed_epoch(lambda: self.run_epoch(train_src, epoch, training=True),
-                                   epoch, start_epoch, perf, lambda _: train_cache.shape[0],
-                                   "images")
+                                   epoch, start_epoch, lambda _: train_cache.shape[0], "images")
             print("." * (tr.shape[0] // 100), end="", flush=True)
             va = self.run_epoch(val_src, epoch, training=False)
             for i, k in enumerate(PIX2PIX_LOSS_KEYS):
