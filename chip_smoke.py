@@ -220,6 +220,23 @@ Phases, each printed; any failure raises and the script exits non-zero:
     "import chip_smoke as c, tempfile; c.tf32_off(); c.build.build();
     c.run_fence(tempfile.mkdtemp(), 'card')"``.
 
+17. Adam's update (``gan_tpu_torch/csrc/adam.cu``, ``kernels.adam_step``)
+    at both benchmark configurations' parameter lists (Pix2Pix 512²: the
+    batch-norm U-Net and the conditional PatchGAN, 57.17 M parameters;
+    CycleGAN 256²: two instance-norm U-Nets and two PatchGANs, 114.3 M), in
+    the models' layouts: one update of the kernel from a seeded state
+    (launch error checked, then a synchronisation) against the plain twin
+    (``adam_update_plain``) and against ``torch.optim.Adam(capturable=True)``'s
+    foreach step, in ulps; then the device time of each and of
+    ``torch.optim.Adam(fused=True, capturable=True)``, the library kernel
+    for this update, CUDA-graph replays timed with CUDA events, beside the
+    28-byte bound (read p, g, m, v, write p, m, v) and the kernel's share
+    of it. torch's Adams are yardsticks only: the port never calls their
+    step on the card. The kernel's launches on the main paths are counted
+    on the card in phases 5-16 (``adam_update``). Alone,
+    after the build: ``python3 -c "import chip_smoke as c; c.tf32_off();
+    c.build.build(); c.check_adam()"``.
+
 The last lines are the kernels' JSON record, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Only phases 12 and 13 write PNGs, into
 temporary directories.
@@ -337,10 +354,12 @@ GRAPH_STEPS = 8     # graph replays per timed call of the graph path
 P2P_BENCH_BATCH = 128   # bench.py:80's per-chip Pix2Pix batch
 SOURCES = {"instance_norm_fwd": "gan_tpu_torch/csrc/instance_norm.cu",
            "instance_norm_bwd": "gan_tpu_torch/csrc/instance_norm.cu",
-           "stem_conv": "gan_tpu_torch/csrc/stem_conv.cu"}
+           "stem_conv": "gan_tpu_torch/csrc/stem_conv.cu",
+           "adam_update": "gan_tpu_torch/csrc/adam.cu"}
 REPLACES = {"instance_norm_fwd": "gan_tpu/ops/pallas_kernels.py:89",
             "instance_norm_bwd": "gan_tpu/ops/pallas_kernels.py:128",
-            "stem_conv": "benchmarks/pallas_stem_proto.py:46"}
+            "stem_conv": "benchmarks/pallas_stem_proto.py:46",
+            "adam_update": "none (gan_tpu/train/optim.py: optax under XLA)"}
 PIX2PIX_STEMS_PER_STEP = 3   # G(x), D(x, y), D(x, G(x)): one stem each
 # the batches at which both CycleGAN forms are timed at each image size (phases
 # 8c and 14d): the sweep that sets the card's crossover (``batched_pass_max``)
@@ -506,6 +525,15 @@ def pix2pix_launches(img_size: int, batch: int, training: bool, remat: bool = Fa
     return {"instance_norm_fwd": (gen + 2 * disc + (gen if recompute else 0)) if per_image else 0,
             "instance_norm_bwd": gen + 3 * disc if per_image and training else 0,
             "stem_conv": PIX2PIX_STEMS_PER_STEP + (1 if recompute else 0)}
+
+
+def with_adam(per_train: dict, per_val: dict, trainer) -> tuple[dict, dict]:
+    """``per_train`` and ``per_val`` with Adam's update kernel: a train step
+    launches it once per ``kernels.ADAM_TENSORS`` of the tensors of
+    ``trainer``'s optimizers (``kernels.adam_launches``), a val step never."""
+    tensors = sum(len(g["params"]) for opt in trainer.opts.values() for g in opt.param_groups)
+    return (dict(per_train, adam_update=kernels.adam_launches(tensors)),
+            dict(per_val, adam_update=0))
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -1035,7 +1063,8 @@ def check_predict(trainer, trainer32, u8, norm_type) -> tuple[dict, np.ndarray]:
     kernels.reset_launches()
     pred, launches = device_launches(lambda: trainer.generate_batched(u8, chunk=BATCH))
     host = dict(kernels.LAUNCHES)
-    want = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes}
+    want = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes,
+            "adam_update": 0}
     print(f"launches on the predict path, counted on the card: {launches} over {passes} "
           f"generator passes, expected {want}; by the wrappers: {host}")
     if launches != want or host != want:
@@ -1371,7 +1400,8 @@ def form_numbers(tmp: str, size: int, batch: int, profile: bool, remat: str = "o
     epochs = {form: functools.partial(t._cached_epoch, caches, rows, 1, True)
               for form, t in trainers.items()}
     for form, epoch in epochs.items():
-        per_step = cyclegan_launches(size, form == "batched", remat == "on")[0]
+        per_step = with_adam(cyclegan_launches(size, form == "batched", remat == "on")[0], {},
+                             trainers[form])[0]
         losses = counted_epoch(epoch, per_step, GRAPH_STEPS,
                                f"{form} form, {size}² batch {batch}, remat {remat}")
         if not torch.isfinite(losses).all():
@@ -1558,7 +1588,8 @@ def run_training(tmp: str, smi: str) -> dict:
 
     train_steps = -(-min(N_TRAIN_X, N_TRAIN_Y) // TRAIN_BATCH)
     val_steps = -(-N_VAL // TRAIN_BATCH)
-    per_train, per_val = cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH))
+    per_train, per_val = with_adam(
+        *cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH)), trainer)
     want, want_host, want_epoch = epoch_plan_counts(
         per_train, per_val, divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
         divmod(N_VAL, TRAIN_BATCH))
@@ -1621,7 +1652,8 @@ def run_training(tmp: str, smi: str) -> dict:
     trainer = CycleGANTrainer(cfg4)
     offsets_from_seed(trainer)
     plan = (divmod(min(N_TRAIN_X, N_TRAIN_Y), REF_BATCH), divmod(N_VAL, REF_BATCH))
-    want, want_host, want_epoch = epoch_plan_counts(*cyclegan_launches(IMG_SIZE, True), *plan)
+    want, want_host, want_epoch = epoch_plan_counts(
+        *with_adam(*cyclegan_launches(IMG_SIZE, True), trainer), *plan)
     mgr4 = CheckpointManager(os.path.join(tmp, "batch_4_checkpoints"), max_to_keep=1)
     print(f"1 epoch: {plan[0][0] + (plan[0][1] > 0)} train steps and "
           f"{plan[1][0] + (plan[1][1] > 0)} val steps in the batched form")
@@ -1679,7 +1711,8 @@ def run_pix2pix_training(tmp: str) -> dict:
     train_steps, val_steps = -(-N_P2P_TRAIN // P2P_BATCH), -(-N_P2P_VAL // P2P_BATCH)
     per_step = pix2pix_launches(IMG_SIZE, P2P_BATCH, True)
     want, want_host, want_epoch = epoch_plan_counts(
-        per_step, per_step, divmod(N_P2P_TRAIN, P2P_BATCH), divmod(N_P2P_VAL, P2P_BATCH))
+        *with_adam(per_step, per_step, trainer), divmod(N_P2P_TRAIN, P2P_BATCH),
+        divmod(N_P2P_VAL, P2P_BATCH))
     print(f"1 epoch: {train_steps} train steps (the last of {N_P2P_TRAIN % P2P_BATCH} rows) and "
           f"{val_steps} val steps (the last of {N_P2P_VAL % P2P_BATCH} rows), "
           f"{PIX2PIX_STEMS_PER_STEP} S per step, no K1 or K2 (batch statistics)")
@@ -1816,7 +1849,8 @@ def run_quality(tmp: str, smi: str) -> dict:
     pred, launches = device_launches(lambda: trainer.generate_batched(u8, chunk=BATCH))
     host = dict(kernels.LAUNCHES)
     passes = N_QUALITY // BATCH
-    expect = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes}
+    expect = {"instance_norm_fwd": 14 * passes, "instance_norm_bwd": 0, "stem_conv": passes,
+              "adam_update": 0}
     print(f"Pix2Pix generator (phase 9's seeded weights, bf16) on {N_QUALITY} images: launches "
           f"counted on the card {launches}, by the wrappers {host}, expected {expect}")
     if launches != expect or host != expect:
@@ -2206,7 +2240,8 @@ def run_host_data(tmp: str, smi: str) -> dict:
     got = recorded_epochs(streamed)
     per_step = pix2pix_launches(IMG_SIZE, P2P_BATCH, True)
     want, want_host, want_epoch = epoch_plan_counts(
-        per_step, per_step, divmod(N_P2P_TRAIN, P2P_BATCH), divmod(N_P2P_VAL, P2P_BATCH))
+        *with_adam(per_step, per_step, streamed), divmod(N_P2P_TRAIN, P2P_BATCH),
+        divmod(N_P2P_VAL, P2P_BATCH))
     kernels.reset_launches()
     _, counted = device_launches(lambda: streamed.fit(p2p_train, val_fc, test, tmp))
     host = dict(kernels.LAUNCHES)
@@ -2258,7 +2293,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
               for paths in (xs, ys)]
     got = recorded_epochs(streamed)
     want, want_host, want_epoch = epoch_plan_counts(
-        *cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH)),
+        *with_adam(*cyclegan_launches(IMG_SIZE, cyclegan_batched(IMG_SIZE, TRAIN_BATCH)), streamed),
         divmod(min(N_TRAIN_X, N_TRAIN_Y), TRAIN_BATCH),
         divmod(N_VAL, TRAIN_BATCH))
     kernels.reset_launches()
@@ -2304,7 +2339,7 @@ def run_host_data(tmp: str, smi: str) -> dict:
     del streamed, resident, train_dev, val_dev
 
     phase(f"13d. predict over {N_QUALITY} PNGs from a FileCache, both models ({smi})")
-    per_pass = {"instance_norm_fwd": 14, "instance_norm_bwd": 0, "stem_conv": 1}
+    per_pass = {"instance_norm_fwd": 14, "instance_norm_bwd": 0, "stem_conv": 1, "adam_update": 0}
     names = [os.path.basename(p) for p in pairs[:N_QUALITY]]
     trainer = seeded_pix2pix(parse_pix2pix(["--data", tmp, "--output", tmp, "--predict",
                                             "--weights", tmp, "--img-size", str(IMG_SIZE),
@@ -2460,12 +2495,14 @@ def fit_512(kind: str, tmp: str, smi: str) -> dict:
         if trainer.sampler.remat != on:
             raise AssertionError(f"--remat {remat} built a generator with remat {not on}")
         if kind == "pix2pix":
-            per = (pix2pix_launches(IMG_512, BATCH_512, True, on),
-                   pix2pix_launches(IMG_512, BATCH_512, False, on))
-            tails = (pix2pix_launches(IMG_512, plan[0][1], True, on),
-                     pix2pix_launches(IMG_512, plan[1][1], False, on))
+            per = with_adam(pix2pix_launches(IMG_512, BATCH_512, True, on),
+                            pix2pix_launches(IMG_512, BATCH_512, False, on), trainer)
+            tails = with_adam(pix2pix_launches(IMG_512, plan[0][1], True, on),
+                              pix2pix_launches(IMG_512, plan[1][1], False, on), trainer)
         else:
-            per, tails = cyclegan_launches(IMG_512, cyclegan_batched(IMG_512, BATCH_512), on), None
+            per = with_adam(*cyclegan_launches(IMG_512, cyclegan_batched(IMG_512, BATCH_512), on),
+                            trainer)
+            tails = None
         want, want_host, want_epoch = epoch_plan_counts(*per, *plan, tails)
         print(f"remat {remat}: 1 epoch of {steps} train steps (full {plan[0]}) and val (full "
               f"{plan[1]}); per full train step {per[0]}, per tail "
@@ -2558,8 +2595,9 @@ def remat_frontier(tmp: str, smi: str) -> None:
             idx = tuple(torch.arange(FRONTIER_STEPS * batch, device="cuda").view(
                 FRONTIER_STEPS, batch).remainder(batch) for _ in caches)
             on = remat == "on"
-            per_step = (cyclegan_launches(size, cyclegan_batched(size, batch), on)[0]
-                        if kind == "cyclegan" else pix2pix_launches(size, batch, True, on))
+            per_step = with_adam(cyclegan_launches(size, cyclegan_batched(size, batch), on)[0]
+                                 if kind == "cyclegan" else pix2pix_launches(size, batch, True, on),
+                                 {}, trainer)[0]
             first = counted_epoch(lambda: trainer._cached_epoch(caches, idx, 0, True), per_step,
                                   FRONTIER_STEPS, f"  {kind} {size}² batch {batch} remat {remat}")
             t0 = time.perf_counter()
@@ -3347,6 +3385,112 @@ def tf32_off() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+ADAM_BYTES = 28   # a parameter's update: read p, g, m, v, write p, m, v, fp32
+ADAM_CONFIGS = {"pix2pix-512": ("batch", True, 1), "cyclegan-256": ("instance", False, 2)}
+# one update against another's fp32 terms: one ulp each way (tests/test_torch_adam.py)
+ADAM_ULPS = 2.0
+
+
+def adam_params(config: str, device) -> list[list[torch.Tensor]]:
+    """Seeded parameters of ``config``'s networks on the card, one list a
+    network in the trainer's order, each in its model's layout: the U-Net
+    (batch norm for Pix2Pix, instance norm for CycleGAN) and the PatchGAN
+    (conditional for Pix2Pix), CycleGAN's twice each."""
+    from gan_tpu_torch.models.patchgan import PatchGANDiscriminator
+    from gan_tpu_torch.models.unet import UNetGenerator
+    norm_type, target, copies = ADAM_CONFIGS[config]
+    g = torch.Generator().manual_seed(SEED)
+    nets = [UNetGenerator(1, 1, norm=norm_type, depth=8, generator=g)] * copies \
+        + [PatchGANDiscriminator(1, norm=norm_type, target=target, generator=g)] * copies
+    return [[p.detach().to(device, copy=True) for p in net.parameters()] for net in nets]
+
+
+def _adam_max_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    big = torch.maximum(a.abs(), b.abs())
+    return float(((a - b).abs() / (torch.nextafter(big, big + 1) - big)).max())
+
+
+def _torch_adam(opts, grads) -> None:
+    """torch.optim.Adam's own step: a yardstick, never the port's path."""
+    for opt, gs in zip(opts, grads):
+        for p, g in zip(opt.param_groups[0]["params"], gs):
+            p.grad = g
+        opt.step()
+
+
+def _adam_twin(opts, grads) -> None:
+    hyper, rows = kernels.adam_rows(opts, grads)
+    kernels.adam_update_plain(rows, *hyper)
+
+
+def check_adam() -> dict:
+    """Phase 17. Returns {config: {"ms", "plain_ms", "library_ms",
+    "foreach_ms", "bound_ms"}}: the kernel, its plain twin, torch's fused
+    Adam (the library kernel for this update), torch's capturable foreach
+    Adam (what the port ran before the kernel) and the 28-B bound."""
+    from gan_tpu_torch.train.optim import TF_ADAM_EPS, adam
+    device = torch.device("cuda")
+    lr = 2e-4
+    capturable = lambda net: adam(net, lr, capturable=True)
+    fused = lambda net: torch.optim.Adam(net, lr=lr, betas=(0.5, 0.999), eps=TF_ADAM_EPS,
+                                         capturable=True, fused=True)
+    out = {}
+    for config in ADAM_CONFIGS:
+        params = adam_params(config, device)
+        n = sum(p.numel() for ps in params for p in ps)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        grads = [[torch.empty_like(p).copy_(torch.randn(p.shape, generator=gen, device=device))
+                  .mul_(1e-3) for p in ps] for ps in params]   # in each parameter's layout
+        runs = {}
+        for label, update in (("kernel", kernels.adam_step), ("plain", _adam_twin),
+                              ("foreach", _torch_adam)):
+            ps = [[p.clone(memory_format=torch.preserve_format) for p in net] for net in params]
+            opts = [capturable(net) for net in ps]
+            with torch.no_grad():
+                update(opts, grads)   # the kernel's launch error is checked by the wrapper
+            torch.cuda.synchronize()
+            runs[label] = (opts, ps)
+        for label in ("plain", "foreach"):
+            gaps = [0.0, 0.0, 0.0]   # p, exp_avg, exp_avg_sq
+            (opts_k, params_k), (opts_w, params_w) = runs["kernel"], runs[label]
+            for og, ow, pg, pw in zip(opts_k, opts_w, params_k, params_w):
+                for a, b in zip(pg, pw):
+                    sa, sb = og.state[a], ow.state[b]
+                    if not torch.equal(sa["step"], sb["step"]):
+                        raise AssertionError(f"{config}: kernel step {sa['step']} vs {label} "
+                                             f"{sb['step']}")
+                    for i, (x, y) in enumerate(((a, b), (sa["exp_avg"], sb["exp_avg"]),
+                                                (sa["exp_avg_sq"], sb["exp_avg_sq"]))):
+                        gaps[i] = max(gaps[i], _adam_max_ulps(x, y))
+            print(f"{config}: one update, kernel vs {label}: largest gaps in ulps p {gaps[0]:g}, "
+                  f"exp_avg {gaps[1]:g}, exp_avg_sq {gaps[2]:g}")
+            if max(gaps) > ADAM_ULPS:
+                raise AssertionError(f"{config}: kernel vs {label} beyond {ADAM_ULPS} ulps")
+        del runs
+        t = {}
+        for key, update, make in (("ms", kernels.adam_step, capturable),
+                                  ("plain_ms", _adam_twin, capturable),
+                                  ("library_ms", _torch_adam, fused),
+                                  ("foreach_ms", _torch_adam, capturable)):
+            opts = [make(net) for net in params]
+            with torch.no_grad():
+                update(opts, grads)   # the state, made outside the graph
+                t[key] = device_ms(lambda: update(opts, grads), calls=10)
+            del opts
+        t["bound_ms"], _ = bound_ms(ADAM_BYTES * n)
+        out[config] = t
+        print(f"{config}: {len(params)} networks, {sum(len(ps) for ps in params)} tensors, "
+              f"{n:,} parameters: kernel {t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+              f"us, torch.optim.Adam(fused=True, capturable=True) {t['library_ms'] * 1e3:.2f} us, "
+              f"its foreach form (capturable) {t['foreach_ms'] * 1e3:.2f} us, 28-B bound "
+              f"{t['bound_ms'] * 1e3:.2f} us; share of bound {t['bound_ms'] / t['ms']:.1%}, "
+              f"kernel/fused {t['ms'] / t['library_ms']:.2f}, kernel/foreach "
+              f"{t['ms'] / t['foreach_ms']:.2f}")
+        del params, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3457,7 +3601,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         add(run_fence(tmp, smi))
 
-    print(f"\nlaunches on the main paths, counted on the card: {launches}")
+    phase("17. Adam's update at both benchmark configurations' parameter lists")
+    a = check_adam()
+
+    print(f"\nlaunches on the main paths (phases 5-16), counted on the card: {launches}")
     if not all(launches[name] > 0 for name in SOURCES):
         raise AssertionError("a kernel of the paths was never launched")
     record = {"kernels": [
@@ -3467,6 +3614,10 @@ def main() -> int:
         for name, err, t, by in (("instance_norm_fwd", k["max_abs_err"], k1_pass, "bytes"),
                                  ("instance_norm_bwd", b["max_abs_err"], k2_pass, "bytes"),
                                  ("stem_conv", s["max_abs_err"], s_step, s_by))]}
+    record["kernels"].append(
+        {"name": "adam_update", "route": "cuda", "source": SOURCES["adam_update"],
+         "replaces": REPLACES["adam_update"], "launches": launches["adam_update"],
+         "bound_by": "bytes", "at": a})
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

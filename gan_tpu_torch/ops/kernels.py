@@ -26,6 +26,12 @@ launches by name, so a run can show that its path went through the kernels;
 :func:`card_launches` reads the kernels' own counts on the card, which also
 see the launches of a CUDA-graph replay.
 
+``gan_tpu_torch/csrc/adam.cu`` holds Adam's update of a trainer's every
+tensor in one pass (it replaces no TPU kernel: gan_tpu's Adam is optax under
+XLA). ``adam_step`` launches it on the card from the optimizers' own state;
+on the CPU it runs ``torch.optim.Adam``'s step. ``adam_update_plain`` is its
+arithmetic in PyTorch ops.
+
 The library is built by :mod:`gan_tpu_torch.ops.build` at first use.
 """
 
@@ -35,11 +41,12 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gan_tpu_torch.ops import build, conv, norm
 
-LAUNCHES = {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 0}
+LAUNCHES = {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 0, "adam_update": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {None: 0, "leaky_relu": 1, "relu": 2}
@@ -55,6 +62,7 @@ SMEM_BUDGET = MAX_SMEM // 2 - 1024   # two blocks to an SM (the system keeps 1 K
 TARGET_BLOCKS = 256       # about two blocks per SM of the H100's 132
 MIN_BAND_BYTES = 16_384   # split H·W no finer than this per block
 MIN_SEG_BYTES = 64        # narrow a channel tile no further than 64-byte rows
+ADAM_TENSORS = 80         # tensors of one Adam update launch; csrc/adam.cu's kMaxTensors
 
 
 def reset_launches() -> None:
@@ -68,13 +76,14 @@ def card_launches() -> dict:
     (the first thread of each launch adds one). Unlike ``LAUNCHES`` it sees
     the launches of a CUDA-graph replay, which calls no wrapper. Waits for
     the card's queued work."""
-    norms, stems = (ctypes.c_ulonglong * 2)(), ctypes.c_ulonglong()
-    for name, out in (("gan_instance_norm_launches", norms), ("gan_stem_conv_launches", stems)):
+    norms, stems, adams = (ctypes.c_ulonglong * 2)(), ctypes.c_ulonglong(), ctypes.c_ulonglong()
+    for name, out in (("gan_instance_norm_launches", norms), ("gan_stem_conv_launches", stems),
+                      ("gan_adam_launches", adams)):
         err = getattr(_lib(), name)(ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"reading the kernels' launch counts failed: cudaError {err}")
     return {"instance_norm_fwd": norms[0], "instance_norm_bwd": norms[1],
-            "stem_conv": stems.value}
+            "stem_conv": stems.value, "adam_update": adams.value}
 
 
 @functools.cache
@@ -93,7 +102,10 @@ def _lib() -> ctypes.CDLL:
     lib.gan_instance_norm_trace.restype = i
     lib.gan_stem_conv.argtypes = [p, p, p, *[i] * 5, *[i] * 5, p]   # ..., c_in, dtype, plan
     lib.gan_stem_conv.restype = i
-    for name in ("gan_instance_norm_launches", "gan_stem_conv_launches"):
+    f = ctypes.c_float
+    lib.gan_adam_update.argtypes = [p, i, f, f, f, f, f, f, p, ctypes.POINTER(i)]
+    lib.gan_adam_update.restype = i
+    for name in ("gan_instance_norm_launches", "gan_stem_conv_launches", "gan_adam_launches"):
         getattr(lib, name).argtypes = [p]
         getattr(lib, name).restype = i
     return lib
@@ -517,3 +529,168 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor, *, compute_dtype=None) -> torch.
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return StemConvFunction.apply(x, w)
     return _launch_stem(x, w)
+
+
+# ---------------------------------------------------------------- Adam
+
+def _params(opt: torch.optim.Optimizer) -> list:
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def adam_state(opt: torch.optim.Optimizer, p: torch.Tensor) -> dict:
+    """``opt.state[p]``, made where it is empty as ``torch.optim.Adam(
+    capturable=True)`` makes it at its first step: a 0-dim fp32 ``step`` on
+    p's device, and ``exp_avg`` and ``exp_avg_sq`` zeros in p's layout."""
+    state = opt.state[p]
+    if not state:
+        state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return state
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether t's elements fill [data_ptr, data_ptr + numel) exactly."""
+    expect = 1
+    for stride, size in sorted((s, n) for s, n in zip(t.stride(), t.shape) if n != 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _layout(t: torch.Tensor) -> tuple:
+    """t's strides over its dims longer than 1: two dense tensors of one
+    shape with the same layout hold each element at the same offset."""
+    return tuple(s for s, n in zip(t.stride(), t.shape) if n != 1)
+
+
+def adam_relayout(opt: torch.optim.Optimizer) -> int:
+    """Gives each moment of ``opt``'s state its parameter's memory layout
+    where it has another, as :func:`adam_state` makes the moments and as the
+    kernel requires. ``load_state_dict`` keeps the strides a state was saved
+    with, and a state converted by ``transplant.adam_state``, or saved by a
+    run that started from one, holds contiguous moments beside channels-last
+    conv kernels. Returns the number of tensors copied."""
+    copied = 0
+    for p, state in opt.state.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            t = state.get(key)
+            if t is not None and t.shape == p.shape and _layout(t) != _layout(p):
+                state[key] = torch.empty_like(p, dtype=t.dtype, device=t.device).copy_(t)
+                copied += 1
+    return copied
+
+
+def _check_adam_row(p, g, m, v, step) -> None:
+    if p.dtype != torch.float32:
+        raise TypeError(f"Adam's kernel updates float32 parameters, got {p.dtype}")
+    if p.numel() == 0 or not (p.is_contiguous() or _dense(p)):
+        raise ValueError(f"Adam's kernel takes a dense, non-empty parameter, got shape "
+                         f"{tuple(p.shape)} with strides {p.stride()}")
+    shape, stride, device = p.shape, p.stride(), p.device
+    for name, t in (("grad", g), ("exp_avg", m), ("exp_avg_sq", v)):
+        if t.dtype != torch.float32 or t.shape != shape or t.device != device:
+            raise TypeError(f"Adam's {name} must be float32 of its parameter's shape on its "
+                            f"device {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride() != stride and _layout(t) != _layout(p):
+            raise ValueError(f"Adam's {name} of shape {tuple(shape)} has strides {t.stride()}, "
+                             f"its parameter {stride}: make the layouts agree where the "
+                             "tensor is made")
+    if step.dim() != 0 or step.dtype != torch.float32 or step.device != device:
+        raise TypeError(f"Adam's step must be a 0-dim float32 tensor on {device}, got "
+                        f"{step.dtype} {tuple(step.shape)} on {step.device}")
+
+
+def adam_rows(optimizers, grads) -> tuple[tuple, list]:
+    """((lr, beta_1, beta_2, eps), [(param, grad, exp_avg, exp_avg_sq,
+    step)]) of ``optimizers`` (Adams) with ``grads`` (per optimizer, its
+    parameters' gradients in param_groups order), their state made where it
+    is missing (:func:`adam_state`) and every row checked: float32, dense,
+    non-empty, gradient and moments of the parameter's shape and layout, all
+    on one device. Raises on options the kernel does not compute (weight
+    decay, amsgrad, maximize, a tensor learning rate) and where two param
+    groups differ in lr, betas or eps: a trainer's optimizers share one
+    configuration, which every launch takes."""
+    hyper, rows, device = None, [], None
+    for opt, gs in zip(optimizers, grads, strict=True):
+        gs = iter(gs)
+        for group in opt.param_groups:
+            if group.get("weight_decay") or group.get("amsgrad") or group.get("maximize"):
+                raise NotImplementedError("Adam's kernel has no weight decay, amsgrad or maximize")
+            if not isinstance(group["lr"], float):
+                raise TypeError(f"Adam's kernel takes a float learning rate, got {group['lr']!r}")
+            key = (group["lr"], *group["betas"], group["eps"])
+            if hyper is None:
+                hyper = key
+            elif key != hyper:
+                raise ValueError(f"Adam's kernel takes one lr, betas and eps: {hyper}, {key}")
+            for p in group["params"]:
+                g = next(gs)
+                state = adam_state(opt, p)
+                row = (p, g, state["exp_avg"], state["exp_avg_sq"], state["step"])
+                _check_adam_row(*row)
+                if device is None:
+                    device = p.device
+                elif p.device != device:
+                    raise ValueError(f"Adam's tensors lie on {device} and {p.device}")
+                rows.append(row)
+        if next(gs, None) is not None:
+            raise ValueError("more gradients than the optimizer has parameters")
+    return hyper, rows
+
+
+def adam_update_plain(rows, lr: float, beta_1: float, beta_2: float, eps: float) -> None:
+    """csrc/adam.cu's update in PyTorch ops, in place, a tensor at a time:
+    ``torch.optim.Adam(capturable=True)``'s foreach form term for term in
+    fp32, the bias corrections from each tensor's step + 1, then the steps
+    advanced."""
+    for p, g, m, v, step in rows:
+        t = step + 1
+        m.lerp_(g, 1 - beta_1)
+        v.mul_(beta_2).addcmul_(g, g, value=1 - beta_2)
+        step_size = ((beta_1 ** t - 1) / lr).reciprocal()   # -lr / (1 - beta_1^t)
+        bc2_sqrt = (-(beta_2 ** t - 1)).sqrt()
+        p.addcdiv_(m, (v.sqrt() / bc2_sqrt + eps) / step_size)
+    for *_, step in rows:
+        step.add_(1)
+
+
+def _launch_adam(rows, lr: float, beta_1: float, beta_2: float, eps: float) -> None:
+    """csrc/adam.cu on checked CUDA ``rows``, on the current stream."""
+    table = np.array([[p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), s.data_ptr(),
+                       p.numel()] for p, g, m, v, s in rows], dtype=np.int64)
+    launches = ctypes.c_int()
+    with torch.cuda.device(rows[0][0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().gan_adam_update(table.ctypes.data, len(rows), lr, beta_1, beta_2, eps,
+                                     1 - beta_1, 1 - beta_2, stream, ctypes.byref(launches))
+    LAUNCHES["adam_update"] += launches.value
+    if err != 0:
+        raise RuntimeError(f"Adam kernel launch failed: cudaError {err} ({len(rows)} tensors)")
+
+
+def adam_step(optimizers, grads) -> None:
+    """One Adam update of each of ``optimizers`` (``torch.optim.Adam``s)
+    from ``grads``: per optimizer, its parameters' gradients in param_groups
+    order. On the CPU, each optimizer's own ``step``. On the card, the
+    kernel of csrc/adam.cu over every tensor of every optimizer at once, on
+    the current stream: one update launch per ``ADAM_TENSORS`` tensors
+    (``LAUNCHES["adam_update"]`` counts them), then one that advances their
+    steps; the state is the optimizers' own (``adam_rows``), read anew at
+    every call."""
+    optimizers, grads = list(optimizers), list(grads)
+    if _params(optimizers[0])[0].device.type == "cpu":
+        for opt, gs in zip(optimizers, grads, strict=True):
+            for p, g in zip(_params(opt), gs, strict=True):
+                p.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        return
+    hyper, rows = adam_rows(optimizers, grads)
+    _launch_adam(rows, *hyper)
+
+
+def adam_launches(n_tensors: int) -> int:
+    """The update launches of one :func:`adam_step` over ``n_tensors``."""
+    return -(-n_tensors // ADAM_TENSORS)

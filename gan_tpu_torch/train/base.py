@@ -89,6 +89,7 @@ from gan_tpu_torch.data import loader
 from gan_tpu_torch.data.augment import normalize_batch
 from gan_tpu_torch.device import torch_dtype
 from gan_tpu_torch.models.blocks import keep_mask
+from gan_tpu_torch.ops import kernels
 from gan_tpu_torch.parallel import Replicas, stripe_rows
 from gan_tpu_torch.train import loop
 from gan_tpu_torch.train.optim import adam
@@ -233,12 +234,10 @@ class GANTrainer:
         return grads, self.replicas.average([losses.detach()])[0]
 
     def apply_gradients(self, grads: dict) -> None:
-        """One Adam update of each network from :meth:`gradients`' output."""
-        for name, opt in self.opts.items():
-            for p, g in zip(self.params[name], grads[name]):
-                p.grad = g
-            opt.step()
-            opt.zero_grad(set_to_none=True)
+        """One Adam update of each network from :meth:`gradients`' output: on
+        the card one pass of csrc/adam.cu over every network's tensors, on
+        the CPU each ``torch.optim.Adam``'s step (``kernels.adam_step``)."""
+        kernels.adam_step(self.opts.values(), [grads[name] for name in self.opts])
 
     def train_step(self, x, y, generators=None, masks=None, bn_group=None) -> torch.Tensor:
         """One step of every network; returns the losses (on the device)."""
@@ -527,7 +526,9 @@ class GANTrainer:
         predict checkpoint needs). Drops the cached epoch runners: Adam's
         ``load_state_dict`` replaces the state tensors that a captured graph
         reads, so the next epoch captures anew. The streamed epochs' buffers
-        stay: the new runners capture against them."""
+        stay: the new runners capture against them. Adam's moments take
+        their parameters' layout (``kernels.adam_relayout``), whatever
+        layout they were saved in."""
         self._runners.clear()
         self._graph_pool = None
         params = state["params"]
@@ -536,3 +537,4 @@ class GANTrainer:
                 net.load_state_dict(params[name])
         for name, opt_state in state.get("opt_states", {}).items():
             self.opts[name].load_state_dict(opt_state)
+            kernels.adam_relayout(self.opts[name])

@@ -5,9 +5,11 @@ gan_tpu/train/optim.py).
 ``torch.optim.Adam``'s form, and optax's with ``eps_root=0``. CycleGAN keeps
 one optimizer per network.
 
-``capturable`` keeps the step count and the bias correction on the device,
-which a CUDA-graph capture of the update requires (the CPU does not take
-it).
+On the card the update is not this optimizer's ``step`` but the kernel of
+``csrc/adam.cu`` (``ops.kernels.adam_step``), which reads and writes its
+state. ``capturable`` keeps the step counts on the device, where the kernel
+advances them and where ``load_state_dict`` puts them (the CPU does not
+take it).
 """
 
 from __future__ import annotations

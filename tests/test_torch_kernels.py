@@ -196,29 +196,36 @@ def test_instance_norm_autograd_launches_k1_then_k2(cuda_device):
         y = torch.cat([fn(*leaves), torch.zeros(2, 8, 8, 32, device=cuda_device)], dim=-1)
         grads.append(torch.autograd.grad((y * cot).sum(), leaves))
         launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        assert launched == ({"instance_norm_fwd": 1, "instance_norm_bwd": 1, "stem_conv": 0}
+        assert launched == ({"instance_norm_fwd": 1, "instance_norm_bwd": 1, "stem_conv": 0,
+                             "adam_update": 0}
                             if fn is kernels.instance_norm else
-                            {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 0})
+                            {"instance_norm_fwd": 0, "instance_norm_bwd": 0, "stem_conv": 0,
+                             "adam_update": 0})
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
 def test_card_launches_count_launches_and_graph_replays(cuda_device):
-    """The kernels' own counters on the card: one per launch of K1, K2 and
-    S, and one per launch in each replay of a CUDA graph that captured them,
-    where the wrappers' ``LAUNCHES`` see the capture only."""
+    """The kernels' own counters on the card: one per launch of K1, K2, S
+    and Adam's update, and one per launch in each replay of a CUDA graph
+    that captured them, where the wrappers' ``LAUNCHES`` see the capture
+    only."""
     x, scale, offset = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs((2, 8, 8, 64)))
     dy = torch.randn_like(x)
     xs = torch.randn(2, 16, 16, 1, device=cuda_device)
     w = torch.randn(64, 1, 4, 4, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    p = torch.zeros(300, device=cuda_device)
+    opt = torch.optim.Adam([p], lr=2e-4, capturable=True)
+    g = torch.randn_like(p)
 
     def step():
         kernels.instance_norm(x, scale, offset)
         kernels.instance_norm_backward(x, scale, dy)
         kernels.stem_conv(xs, w)
+        kernels.adam_step([opt], [[g]])
 
-    one = {"instance_norm_fwd": 1, "instance_norm_bwd": 1, "stem_conv": 1}
+    one = {"instance_norm_fwd": 1, "instance_norm_bwd": 1, "stem_conv": 1, "adam_update": 1}
     before = kernels.card_launches()
     step()
     assert {k: v - before[k] for k, v in kernels.card_launches().items()} == one
