@@ -37,7 +37,8 @@ def program_readings(cell, seed, device, plant=None) -> dict:
     trainer = cells.make_trainer(cell, seed, device)
     if plant is not None:
         plant(trainer)
-    with checks.Snapshots(trainer) as snap:
+    c = cell["config"]
+    with checks.Snapshots(trainer, cells.model(c).trained(c)) as snap:
         first = cells.run_epoch(trainer, inputs, 0, True)
     del trainer, inputs, snap.trainer
     gc.collect()

@@ -4,7 +4,9 @@ the corpus lives, the chips, the limits of the comparison) and the
 run states them). A key of the workload's ``overrides`` replaces the
 configuration's. This module makes what a run hands the program and the
 reference alike: the seeded weights, the seeded rows or the file lists, and
-the trainer, built through the program's public constructor.
+the trainer, built through the program's public constructor. Whatever
+depends on the model, it asks of the configuration's model file
+(``portbench.models``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from portbench import corpus
+from portbench import corpus, models
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(ROOT)
@@ -54,24 +56,29 @@ def keyed(seed: int, key: int, device):
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def model(config: dict):
+    """The configuration's model: ``models/<model>.py``, by its ``model`` key."""
+    return models.get(config["model"])
+
+
 def param_specs(config: dict) -> dict:
     """{network: [(parameter name, shape)]}, from the reference's networks."""
     import torch
-    from portbench.reference import nets
     with torch.device("meta"):
-        built = nets.build(config)
+        built = model(config).build(config)
     return {net: [(n, tuple(p.shape)) for n, p in m.named_parameters()] for net, m in built.items()}
 
 
 def make_weights(config: dict, seed: int, device) -> dict:
     """{network: {parameter: tensor}}, fp32 on ``device``, as the reference
-    initialises them: every conv kernel N(0, 0.02), instance-norm scales
-    N(1, 0.02), batch-norm gammas 1, offsets, betas and biases 0. The normal
-    draws are one call on the device from the seed."""
+    initialises them: the parameters that the model's ``normal_params``
+    names (by default every conv kernel, and instance-norm scales, which
+    then add 1) N(0, 0.02); batch-norm gammas 1; offsets, betas and biases 0.
+    The normal draws are one call on the device from the seed."""
     import torch
     specs = param_specs(config)
-    normal = [(net, n, s) for net, ps in specs.items() for n, s in ps
-              if n.endswith(("conv", "conv512", "scale"))]
+    normal_params = model(config).normal_params
+    normal = [(net, n, s) for net, ps in specs.items() for n, s in ps if normal_params(n)]
     flat = torch.randn(sum(int(np.prod(s)) for _, _, s in normal), generator=keyed(
         seed, WEIGHTS_KEY, device), device=device).mul_(0.02)
     out = {net: {} for net in specs}
@@ -90,84 +97,73 @@ def make_weights(config: dict, seed: int, device) -> dict:
 
 
 def counts(cell: dict) -> tuple[int, int, int, int]:
-    """(train X, train Y, val X, val Y) rows; Pix2Pix's Y counts are 0."""
-    c = cell["config"]
-    if c["model"] == "pix2pix":
-        return c["train_pairs"], 0, c["val_pairs"], 0
-    return c["train_x"], c["train_y"], c["val_x"], c["val_y"]
+    """(train X, train Y, val X, val Y) rows; a domain the model has not got
+    counts 0."""
+    return tuple(model(cell["config"]).counts(cell["config"]))
 
 
 def row_shapes(cell: dict) -> dict:
-    c = cell["config"]
-    s, ch, pad = c["img_size"], c["channels"], c["jitter_pad"]
-    pair = (2,) if c["model"] == "pix2pix" else ()
-    return {"train": (*pair, s + pad, s + pad, ch), "val": (*pair, s, s, ch)}
+    """{"train_x", ...: the uint8 shape of one row}, for the keys with rows."""
+    return model(cell["config"]).row_shapes(cell["config"])
 
 
 def resident_rows(cell: dict, seed: int, device) -> dict:
     """The corpus as uint8 rows on the device, from the seed: {"train_x",
-    "train_y", "val_x", "val_y"} (Pix2Pix: the pairs under the "_x" keys),
-    each made by one call."""
+    "train_y", "val_x", "val_y"} for the keys with rows, each made by one
+    call, in that order."""
     import torch
     g = keyed(seed, ROWS_KEY, device)
     shapes = row_shapes(cell)
     out = {}
     for key, n in zip(("train_x", "train_y", "val_x", "val_y"), counts(cell)):
         if n:
-            out[key] = torch.randint(0, 256, (n, *shapes[key[:-2]]), generator=g, device=device,
+            out[key] = torch.randint(0, 256, (n, *shapes[key]), generator=g, device=device,
                                      dtype=torch.uint8)
     return out
 
 
 def file_lists(cell: dict, seed: int) -> tuple[list, list]:
-    """(train, val) pair files of a file cell, drawn from its pool by the seed."""
+    """(train, val) pair files of a file cell, drawn from its pool by the
+    seed: as many as the X domain's train and val rows."""
     n_train, _, n_val, _ = counts(cell)
     pool = corpus.pair_pool(dict(cell["corpus"], files=n_train + n_val))
     return corpus.split(pool, n_train, n_val, seed)
 
 
 def program_inputs(cell: dict, seed: int, device) -> dict:
-    """What the program's epochs take: resident rows on the device, or
-    FileCaches (the program's own streamed path, ``--host-cache off``)."""
-    if cell["storage"] == "resident":
-        return resident_rows(cell, seed, device)
-    if cell["storage"] != "files" or cell["config"]["model"] != "pix2pix":
-        raise ValueError(f"unknown storage {cell['storage']!r} for {cell['config']['model']}")
-    from gan_tpu_torch.data import loader, pipeline
+    """What the program's epochs take: resident rows on the device, or what
+    the model streams them from."""
+    return model(cell["config"]).program_inputs(cell, seed, device)
+
+
+def check_networks(config: dict, program: dict) -> None:
+    """Raises where the configuration states other networks than the
+    program's trainer builds (``program``: {key: the program's value})."""
+    for key, value in program.items():
+        if config[key] != value:
+            raise ValueError(f"{config['name']}: {key} {config[key]!r} is not what the "
+                             f"program runs ({value!r})")
+
+
+def program_args(cell: dict, seed: int) -> dict:
+    """The program's configuration keys that every model's CLI shares."""
     c = cell["config"]
-    train, val = file_lists(cell, seed)
-    rows = {t: pipeline.pix2pix_rows(img_size=c["img_size"], channels=c["channels"],
-                                     orient="left", train=t) for t in (True, False)}
-    return {"train_x": loader.host_or_file_cache(train, rows[True], c["batch_size"], "off"),
-            "val_x": loader.host_or_file_cache(val, rows[False], c["batch_size"], "off")}
+    return dict(output="", img_size=c["img_size"], batch_size=c["batch_size"],
+                channels=str(c["channels"]), seed=seed, train=True, dtype=c["dtype"],
+                learning_rate=c["learning_rate"], beta_1=c["beta_1"], beta_2=c["beta_2"],
+                validation_size=c["validation_size"], remat=c["remat"],
+                host_cache="off" if cell["storage"] == "files" else "auto", lam=c["lambda"])
 
 
 def program_config(cell: dict, seed: int):
     """The configuration as the program's CLI would hold it."""
-    from gan_tpu_torch.config import CycleGANConfig, Pix2PixConfig
-    c = cell["config"]
-    common = dict(output="", img_size=c["img_size"], batch_size=c["batch_size"],
-                  channels=str(c["channels"]), seed=seed, train=True, dtype=c["dtype"],
-                  learning_rate=c["learning_rate"], beta_1=c["beta_1"], beta_2=c["beta_2"],
-                  validation_size=c["validation_size"], remat=c["remat"],
-                  host_cache="off" if cell["storage"] == "files" else "auto", lam=c["lambda"])
-    if c["model"] == "pix2pix":
-        cfg = Pix2PixConfig(generator_loss=c["generator_loss"], input_img_orient="left", **common)
-    else:
-        cfg = CycleGANConfig(**common)
-    cfg.validate()
-    return cfg
+    return model(cell["config"]).program_config(cell, seed)
 
 
 def make_trainer(cell: dict, seed: int, device, marks: Optional[list] = None):
     """The program's trainer through its public constructor, on ``device``,
     with the seeded weights loaded; ``marks`` gets the time of each part."""
-    from gan_tpu_torch.parallel import single
-    from gan_tpu_torch.train.cyclegan_trainer import CycleGANTrainer
-    from gan_tpu_torch.train.pix2pix_trainer import Pix2PixTrainer
-    cfg = program_config(cell, seed)
-    cls = Pix2PixTrainer if cell["config"]["model"] == "pix2pix" else CycleGANTrainer
-    trainer = cls(cfg, single(device))
+    trainer = model(cell["config"]).make_trainer(cell, seed, device)
     if marks is not None:
         marks.append(("trainer built", time.perf_counter()))
     trainer.load_state({"params": make_weights(cell["config"], seed, device)})

@@ -43,16 +43,18 @@ DIFF_QUANTILE = 0.9     # grad1_diff's parameter: the one at this quantile of th
 class Snapshots:
     """Copies of the program's state during epoch 0's train pass: Adam's
     first moments after step 1 and the parameters after step 3, by leaf
-    name (``network.parameter``)."""
+    name (``network.parameter``), of the ``trained`` networks (the model's
+    ``trained``: a frozen network has no Adam and no change to read)."""
 
-    def __init__(self, trainer):
+    def __init__(self, trainer, trained):
         self.trainer = trainer
+        self.trained = list(trained)
         self.moments: dict = {}
         self.params: dict = {}
 
     def _leaves(self):
-        for net, module in self.trainer.nets.items():
-            for name, p in module.named_parameters():
+        for net in self.trained:
+            for name, p in self.trainer.nets[net].named_parameters():
                 yield f"{net}.{name}", p, self.trainer.opts[net].state.get(p, {})
 
     def _hooked(self, epoch: int, stream: int, step: int):
@@ -169,37 +171,20 @@ def reference_readings(cell: dict, seed: int, device, q=None) -> dict:
     control's rounding of conv operands)."""
     import torch
     from portbench import cells
-    from portbench.reference import nets, png, steps
+    from portbench.reference import nets, steps
 
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         c = cell["config"]
-        built = nets.build(c)
+        model = cells.model(c)
+        built = model.build(c)
         weights = cells.make_weights(c, seed, device)
         for net, module in built.items():
             module.to(device)
             module.load_state_dict(weights[net])
         del weights
-        b = c["batch_size"]
-        if cell["storage"] == "files":
-            train, _val = cells.file_lists(cell, seed)
-            size = c["img_size"] + c["jitter_pad"]
-
-            def rows(s):
-                return torch.from_numpy(np.stack([png.pair_row(p, size)
-                                                  for p in train[s * b:(s + 1) * b]])).to(device)
-        else:
-            data = cells.resident_rows(cell, seed, device)
-            if c["model"] == "pix2pix":
-                def rows(s):
-                    return data["train_x"][s * b:(s + 1) * b]
-            else:
-                order = steps.cyclegan_order(seed, 0, *cells.counts(cell)[:2])
-
-                def rows(s):
-                    return tuple(data[k][torch.from_numpy(o[s * b:(s + 1) * b]).to(device)]
-                                 for k, o in zip(("train_x", "train_y"), order))
+        rows = model.reference_rows(cell, seed, device)
         return steps.run_steps(c, built, rows, seed, CHECKED_STEPS, q=q or nets.identity)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

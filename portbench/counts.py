@@ -4,7 +4,10 @@ and operations of the operations that the kernels S (the stem conv), K1 and
 K2 (the instance norm's forward and backward) carry out, whose bound a
 ``*_roofline`` metric divides by the kernels' time. None of it
 asks the program what it launches, so a reading stays the same work
-whatever implements it.
+whatever implements it. Each model counts its own step in
+``portbench/models/<model>.py``; ``step_flops``, ``epoch_steps``,
+``norm_ops`` and ``stem_ops`` here hand the configuration to its model,
+and the rest are the parts the models count with.
 
 Model FLOPs are 2 · MAC of every conv and transposed conv of a step,
 forward and backward (dgrad and wgrad), with no dgrad where the input needs
@@ -64,45 +67,9 @@ def patchgan_convs(config: dict) -> list[tuple[int, bool]]:
             ((s // 8 - 2) ** 2 * 512 * 16, False)]
 
 
-def _macs(convs) -> tuple[int, int]:
+def macs(convs) -> tuple[int, int]:
     """(all MACs, the stem's) per image."""
     return sum(m for m, _ in convs), sum(m for m, stem in convs if stem)
-
-
-def step_flops(config: dict, training: bool, bx: int, by: int = 0) -> float:
-    """Model FLOPs of one step of bx rows (CycleGAN: bx X and by Y rows)."""
-    g, gs = _macs(unet_convs(config))
-    d, ds = _macs(patchgan_convs(config))
-    if config["model"] == "pix2pix":
-        if not training:
-            return 2.0 * bx * (g + 2 * d)
-        # G: fwd, wgrad, dgrad but the stem's (x needs none); D(x, y): the
-        # same; D(x, fake): fwd, dgrad to G (the stem's too), wgrad and
-        # dgrad but the stem's in D's group
-        return 2.0 * bx * ((3 * g - gs) + (3 * d - ds) + (4 * d - ds))
-    rows = bx + by
-    if not training:
-        return 2.0 * (3 * rows * g + 2 * rows * d)
-    # six generator applications of 3·rows rows in all, of which F(fake_y)
-    # and G(fake_x) take their stem's dgrad; D on real (rows) and on fake
-    # (rows) images
-    return 2.0 * (3 * rows * (3 * g - gs) + rows * gs + rows * (3 * d - ds)
-                  + rows * (4 * d - ds))
-
-
-def epoch_steps(config: dict, n_x: int, n_y: int = 0) -> list[tuple[int, int, int]]:
-    """(count, bx, by) of an epoch's step shapes: its full batches, then its
-    partial last batch (Pix2Pix: by 0; CycleGAN: the zip of the two domains,
-    whose tail takes what each domain has left, up to a batch)."""
-    b = config["batch_size"]
-    n = n_x if config["model"] == "pix2pix" else min(n_x, n_y)
-    full, tail = divmod(n, b)
-    by = 0 if config["model"] == "pix2pix" else b
-    steps = [(full, b, by)] if full else []
-    if tail:
-        steps.append((1, tail, 0) if config["model"] == "pix2pix"
-                     else (1, min(b, n_x - full * b), min(b, n_y - full * b)))
-    return steps
 
 
 def norm_sites(config: dict) -> tuple[list, list]:
@@ -114,7 +81,9 @@ def norm_sites(config: dict) -> tuple[list, list]:
     return gen, [(s // 4, 128), (s // 8, 256), (s // 8 - 1, 512)]
 
 
-def _norm_ops(sites, rows: int, dtype: str, backward: bool) -> list[tuple[float, float]]:
+def site_norm_ops(sites, rows: int, dtype: str, backward: bool) -> list[tuple[float, float]]:
+    """(bytes, operations) of an instance norm over ``rows`` images at each
+    (H = W, C) site, forward or backward."""
     e = DTYPE_BYTES[dtype]
     out = []
     for hw, c in sites:
@@ -126,31 +95,37 @@ def _norm_ops(sites, rows: int, dtype: str, backward: bool) -> list[tuple[float,
     return out
 
 
+def stem_op(config: dict, rows: int, cin: int) -> tuple[float, float]:
+    """(bytes, operations) of one stem conv + LeakyReLU application (S's work):
+    4x4 stride 2 to 64 filters over ``rows`` square images of ``cin``
+    channels."""
+    s, e = config["img_size"], DTYPE_BYTES[config["dtype"]]
+    out = rows * (s // 2) ** 2 * 64
+    return ((rows * s * s * cin + 64 * cin * 16 + out) * e, 2.0 * out * 16 * cin)
+
+
+def _model(config: dict):
+    from portbench import models
+    return models.get(config["model"])
+
+
+def step_flops(config: dict, training: bool, bx: int, by: int = 0) -> float:
+    """Model FLOPs of one step of bx rows (two-domain models: bx X and by Y rows)."""
+    return _model(config).step_flops(config, training, bx, by)
+
+
+def epoch_steps(config: dict, n_x: int, n_y: int = 0) -> list[tuple[int, int, int]]:
+    """(count, bx, by) of an epoch's step shapes: its full batches, then its
+    partial last batch."""
+    return _model(config).epoch_steps(config, n_x, n_y)
+
+
 def norm_ops(config: dict, training: bool, bx: int, by: int, backward: bool) -> list:
-    """(bytes, operations) of each instance norm of a CycleGAN step, forward
-    (K1's work) or backward (K2's); none for batch-norm configurations."""
-    if config["model"] != "cyclegan" or config["generator"]["norm"] != "instance":
-        return []
-    gen, disc = norm_sites(config)
-    rows, dt = bx + by, config["dtype"]
-    if not backward:
-        return _norm_ops(gen, 3 * rows, dt, False) + _norm_ops(disc, 2 * rows, dt, False)
-    if not training:
-        return []
-    # the generators' walk: every generator application and D on the fakes;
-    # the discriminators' walk: D on real and on fake images
-    return _norm_ops(gen, 3 * rows, dt, True) + _norm_ops(disc, rows + 2 * rows, dt, True)
+    """(bytes, operations) of each instance norm of a step, forward (K1's
+    work) or backward (K2's); [] where the model runs no instance norm."""
+    return _model(config).norm_ops(config, training, bx, by, backward)
 
 
 def stem_ops(config: dict, training: bool, bx: int, by: int = 0) -> list[tuple[float, float]]:
-    """(bytes, operations) of each stem conv + LeakyReLU of a step (S's work):
-    4x4 stride 2 to 64 filters, per network application."""
-    s, c, e = config["img_size"], config["channels"], DTYPE_BYTES[config["dtype"]]
-
-    def stem(rows, cin):
-        out = rows * (s // 2) ** 2 * 64
-        return ((rows * s * s * cin + 64 * cin * 16 + out) * e, 2.0 * out * 16 * cin)
-
-    if config["model"] == "pix2pix":
-        return [stem(bx, c), stem(bx, 2 * c), stem(bx, 2 * c)]
-    return [stem(r, c) for r in (bx, bx, by, by, bx, by)] + [stem(r, c) for r in (bx, by, by, bx)]
+    """(bytes, operations) of each stem conv + LeakyReLU of a step (S's work)."""
+    return _model(config).stem_ops(config, training, bx, by)

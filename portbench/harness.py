@@ -105,7 +105,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device, t0: float,
         plant(trainer)
     sync()
     marks.append(("weights loaded", time.perf_counter()))
-    with checks.Snapshots(trainer) as snap:
+    with checks.Snapshots(trainer, cells.model(c).trained(c)) as snap:
         first = cells.run_epoch(trainer, inputs, 0, True)
     marks.append(("train epoch 0", time.perf_counter()))
     cells.run_epoch(trainer, inputs, 0, False)
@@ -117,7 +117,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device, t0: float,
 
     n = cells.counts(cell)
     train_steps = counts.epoch_steps(c, n[0], n[1])
-    epoch_pairs = n[0] if c["model"] == "pix2pix" else min(n[0], n[1])
+    epoch_pairs = cells.model(c).epoch_pairs(c, n)
     epoch_flops = sum(k * counts.step_flops(c, True, bx, by) for k, bx, by in train_steps)
     attempted = failed = 0
     untraced = []

@@ -179,22 +179,3 @@ def generator_depth(img_size: int, depth: int) -> int:
     """The configuration's depth, capped at log2 of the image size for small
     test images, as the program caps it."""
     return min(depth, img_size.bit_length() - 1)
-
-
-def build(config: dict) -> dict:
-    """The configuration's networks by name, parameters uninitialised:
-    Pix2Pix {"gen", "disc"}, CycleGAN {"gen_g", "gen_f", "disc_x", "disc_y"}."""
-    g, d, c = config["generator"], config["discriminator"], config["channels"]
-    depth = generator_depth(config["img_size"], g["depth"])
-
-    def unet():
-        return UNet(c, g["norm"], depth, g["down_filters"], g["up_blocks"])
-
-    def patchgan():
-        return PatchGAN(c, d["norm"], d["conditional"])
-
-    if config["model"] == "pix2pix":
-        return {"gen": unet(), "disc": patchgan()}
-    if config["model"] == "cyclegan":
-        return {"gen_g": unet(), "gen_f": unet(), "disc_x": patchgan(), "disc_y": patchgan()}
-    raise ValueError(f"unknown model {config['model']!r}")

@@ -17,7 +17,7 @@ CELLS = ("pix2pix-512.b4.resident", "cyclegan-256.b4.resident")
 def setup(name, seed=3):
     cell = tiny(name)
     c = cell["config"]
-    built = nets.build(c)
+    built = cells.model(c).build(c)
     weights = cells.make_weights(c, seed, torch.device("cpu"))
     for net, module in built.items():
         module.load_state_dict(weights[net])
@@ -43,12 +43,8 @@ def test_train_step_flops_are_the_reference_steps(name):
 def test_val_step_flops_are_the_reference_forward(name):
     c, built, rows = setup(name)
     b = c["batch_size"]
-    draw = steps.Step(c, built, 3, 0, torch.device("cpu"))
     with torch.no_grad(), FlopCounterMode(display=False) as flops:
-        if c["model"] == "pix2pix":
-            steps.pix2pix_losses(c, built, *draw.pix2pix(rows(0)), q=nets.identity)
-        else:
-            steps.cyclegan_losses(c, built, *draw.cyclegan(*rows(0)), q=nets.identity)
+        cells.model(c).losses(c, built, rows(0), 3, 0, nets.identity)
     assert flops.get_total_flops() == counts.step_flops(c, False, b, b)
 
 

@@ -49,3 +49,30 @@ def test_the_control_fails_the_limits(name):
         control = checks.reference_readings(cell, seed, CPU, q=steps.fp8)
         failed += not checks.verdict(checks.gaps(control, ref), cell["limits"])
     assert failed == 3
+
+
+def test_half_batch_keeps_each_applications_masks_across_the_passes_forms():
+    """At a batch past the batched passes' limit, half of it runs the batched
+    form: each application's masks are still the first rows of its own."""
+    from portbench import cells
+    cell = tiny("cyclegan-256.b4.resident", dtype="fp32", batch_size=8)
+    trainer = cells.make_trainer(cell, 5, CPU)
+    trainer.BATCHED_PASS_MAX = 4
+    seen = {}
+    trainer.train_step = lambda x, y, generators=None, masks=None, bn_group=None: \
+        seen.update(x=x, y=y, masks=masks)
+    faults.half_batch(trainer)
+    full, halved = trainer.passes(8, 8), trainer.passes(4, 4)
+    assert len(full) == 6 and len(halved) == 3
+    masks = [[torch.arange(8 * len(outputs)) + 1000 * k + 100 * site for site in range(2)]
+             for k, (_net, _inputs, outputs) in enumerate(full)]
+    want = {name: [m[j * 8:j * 8 + 4] for m in drawn]
+            for drawn, (_net, _inputs, outputs) in zip(masks, full)
+            for j, name in enumerate(outputs)}
+    x, y = torch.zeros(8, 1), torch.ones(8, 1)
+    trainer.train_step(x, y, masks=masks)
+    assert seen["x"].shape[0] == 4 and seen["y"].shape[0] == 4
+    assert len(seen["masks"]) == len(halved)
+    for drawn, (_net, _inputs, outputs) in zip(seen["masks"], halved):
+        for site in range(2):
+            assert torch.equal(drawn[site], torch.cat([want[name][site] for name in outputs]))

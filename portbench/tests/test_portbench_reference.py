@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from portbench import cells, checks
-from portbench.reference import nets, steps
+from portbench.reference import cyclegan, nets, pix2pix, steps
 from portbench_cases import tiny
 
 CPU = torch.device("cpu")
@@ -19,15 +19,15 @@ def both(name, seed):
     cell = tiny(name, dtype="fp32")
     c = cell["config"]
     trainer = cells.make_trainer(cell, seed, CPU)
-    built = nets.build(c)
+    built = cells.model(c).build(c)
     weights = cells.make_weights(c, seed, CPU)
     for net, module in built.items():
         module.load_state_dict(weights[net])
     return cell, c, trainer, built
 
 
-def reference_grads(model, built, objectives):
-    out, groups = {}, steps.GROUPS[model]
+def reference_grads(c, built, objectives):
+    out, groups = {}, cells.model(c).groups
     for i, (group, objective) in enumerate(zip(groups, objectives)):
         params = [p for net in group for p in built[net].parameters()]
         flat = torch.autograd.grad(objective, params, retain_graph=i < len(groups) - 1)
@@ -40,7 +40,7 @@ def reference_grads(model, built, objectives):
 def pass_masks(c, bx, by, masks):
     """The program's per-pass keep-masks from the reference's per-image ones."""
     return [[torch.cat([masks[o][site] for o in outputs]) for site in range(len(masks[outputs[0]]))]
-            for _net, _inputs, outputs in steps.cyclegan_passes(c, bx, by)]
+            for _net, _inputs, outputs in cyclegan.passes(c, bx, by)]
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -50,15 +50,15 @@ def test_the_reference_step_is_the_ports(name):
     data = cells.resident_rows(cell, seed, CPU)
     draw = steps.Step(c, built, seed, 0, CPU)
     if c["model"] == "pix2pix":
-        x, y, masks = draw.pix2pix(data["train_x"][:4])
-        objectives, want = steps.pix2pix_losses(c, built, x, y, masks, nets.identity)
+        x, y, masks = pix2pix.draws(draw, data["train_x"][:4])
+        objectives, want = pix2pix.objectives(c, built, x, y, masks, nets.identity)
         grads, losses = trainer.gradients(x, y, masks=[masks["fake"]])
     else:
-        x, y, masks = draw.cyclegan(data["train_x"][:4], data["train_y"][:4])
-        objectives, want = steps.cyclegan_losses(c, built, x, y, masks, nets.identity)
+        x, y, masks = cyclegan.draws(draw, data["train_x"][:4], data["train_y"][:4])
+        objectives, want = cyclegan.objectives(c, built, x, y, masks, nets.identity)
         grads, losses = trainer.gradients(x, y, masks=pass_masks(c, 4, 4, masks))
     torch.testing.assert_close(losses, want.detach(), rtol=1e-5, atol=1e-6)
-    ref = reference_grads(c["model"], built, objectives)
+    ref = reference_grads(c, built, objectives)
     for net, module in built.items():
         names = [n for n, _ in module.named_parameters()]
         assert names == [n for n, _ in trainer.nets[net].named_parameters()]
@@ -81,7 +81,8 @@ def test_the_epoch_runners_first_steps_are_the_references(name, pool):
     cell = tiny(name, dtype="fp32")
     inputs = cells.program_inputs(cell, seed, CPU)
     trainer = cells.make_trainer(cell, seed, CPU)
-    with checks.Snapshots(trainer) as snap:
+    c = cell["config"]
+    with checks.Snapshots(trainer, cells.model(c).trained(c)) as snap:
         first = cells.run_epoch(trainer, inputs, 0, True)
     assert trainer._step_draws.__func__ is type(trainer)._step_draws   # the hook is gone
     got = snap.readings(first, checks.start_weights(cell, seed, CPU), cell["config"]["beta_1"])
