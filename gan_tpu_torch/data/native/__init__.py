@@ -2,7 +2,8 @@
 (counterpart of gan_tpu/data/native/).
 
 One call decodes a list of PNG files and does their per-file work (the
-Pix2Pix split and resizes, or CycleGAN's resizes) into a caller's uint8
+Pix2Pix split and resizes, CycleGAN's resizes, or pix2pixHD's label,
+instance and image maps of one row) into a caller's uint8
 array, spread over ``threads`` C++ threads. ctypes releases the GIL for the
 whole call, so the main thread keeps launching the card's work meanwhile.
 The rows equal gan_tpu's default (native) path bit for bit.
@@ -134,8 +135,11 @@ def library() -> ctypes.CDLL:
             lib.gtt_load_pair_batch.argtypes = [paths, c_int, c_int, c_int, c_int, u8, c_int, i32]
             lib.gtt_load_single_batch.argtypes = [paths, c_int, c_int, c_int, c_int, u8, c_int,
                                                   i32]
+            lib.gtt_load_hd_batch.argtypes = [paths, paths, paths, c_int, c_int, c_int, u8, c_int,
+                                              i32]
             lib.gtt_decode.argtypes = [ctypes.c_char_p, c_int, u8, ctypes.c_longlong, i32, i32]
-            for fn in (lib.gtt_load_pair_batch, lib.gtt_load_single_batch, lib.gtt_decode):
+            for fn in (lib.gtt_load_pair_batch, lib.gtt_load_single_batch, lib.gtt_load_hd_batch,
+                       lib.gtt_decode):
                 fn.restype = c_int
             _lib = lib
         return _lib
@@ -195,7 +199,29 @@ def load_single_batch(paths: Sequence[str], *, channels: int, img_size: int, out
     return out, jpegs
 
 
-def _png_size(path: str) -> tuple[int, int]:
+def load_hd_batch(triples: Sequence[tuple], *, height: int, width: int,
+                  out: Optional[np.ndarray] = None,
+                  threads: Optional[int] = None) -> tuple[np.ndarray, list[int]]:
+    """(N, height, width, 6) uint8 pix2pixHD rows of (label, instance, image)
+    file triples, the instance or image None where there is none, and the
+    indices of the rows with a JPEG among their files: the native twin of
+    ``pipeline.pix2pixhd_sample``."""
+    n = len(triples)
+    out = _out(out, (n, height, width, 6))
+    if n == 0:
+        return out, []
+    names = [(ctypes.c_char_p * n)(*(None if t[k] is None else os.fsencode(t[k])
+                                     for t in triples)) for k in range(3)]
+    status = np.zeros(n, np.int32)
+    failed = library().gtt_load_hd_batch(
+        *names, n, height, width, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        threads or default_threads(), status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    if failed:
+        raise _error(", ".join(p for p in triples[failed - 1] if p), int(status[failed - 1]))
+    return out, np.flatnonzero(status == JPEG).tolist()
+
+
+def png_size(path: str) -> tuple[int, int]:
     """(height, width) from a PNG's IHDR, or (0, 0) when it has none or
     cannot be read (the decoder then says why)."""
     try:
@@ -211,7 +237,7 @@ def _png_size(path: str) -> tuple[int, int]:
 def decode_image(path: str, channels: int) -> np.ndarray:
     """One PNG as uint8 (H, W, channels): the native twin of
     ``pipeline.decode_image``."""
-    h, w = _png_size(path)
+    h, w = png_size(path)
     out = np.empty((h, w, channels), np.uint8)
     got_h, got_w = ctypes.c_int(0), ctypes.c_int(0)
     status = library().gtt_decode(os.fsencode(path), channels,

@@ -13,7 +13,11 @@
 //   - then RGB -> L by PIL's integer luma, or L -> RGB by copying;
 //   - Pix2Pix: split at w / 2, each half nearest-resized to `size`;
 //     CycleGAN: nearest-resize to img_size, then to out_size when they
-//     differ (two resizes, as the reference chains them).
+//     differ (two resizes, as the reference chains them);
+//   - pix2pixHD: a label map, an instance map whose gray samples are ids
+//     kept whole (16 bits as their high and low byte; below 16 bits
+//     unscaled) and an RGB image, each nearest-resized to (height, width)
+//     and interleaved as (label, id high, id low, R, G, B).
 // A file that starts with JPEG's FF D8 is refused with its own status: the
 // Python side decodes it with PIL. Every chunk's CRC is checked; ancillary
 // chunks are skipped, an unknown critical one is refused.
@@ -103,7 +107,7 @@ struct Scratch {
   std::vector<uint8_t> zero;       // the row above a pass's first row
   std::vector<uint8_t> image;      // (h, w, header channels), 8-bit
   std::vector<uint8_t> converted;  // (h, w, requested channels)
-  std::vector<uint8_t> mid;        // CycleGAN's first resize
+  std::vector<uint8_t> mid;        // CycleGAN's first resize; pix2pixHD's resized maps
   std::vector<int> rows, cols;
   uint8_t palette[256 * 3];
 };
@@ -340,12 +344,38 @@ void expand_row(const Header& hd, const uint8_t* palette, const uint8_t* src, ui
   }
 }
 
-// Decodes a PNG file into s->image: (h, w, hd->channels), 8-bit.
-int decode_png(const char* path, Scratch* s, Header* hd) {
+// One unfiltered row of a gray image as ids of two bytes (high, low),
+// written every `step` pixels from `dst`: 16-bit samples whole, shallower
+// ones unscaled in the low byte.
+void expand_ids(const Header& hd, const uint8_t* src, uint32_t width, uint8_t* dst, int step) {
+  const size_t stride = static_cast<size_t>(step) * 2;
+  for (uint32_t i = 0; i < width; ++i) {
+    uint8_t* d = dst + i * stride;
+    if (hd.depth == 16) {
+      d[0] = src[2 * i];
+      d[1] = src[2 * i + 1];
+    } else if (hd.depth == 8) {
+      d[0] = 0;
+      d[1] = src[i];
+    } else {
+      const size_t bit = static_cast<size_t>(i) * hd.depth;
+      d[0] = 0;
+      d[1] = uint8_t((src[bit >> 3] >> (8 - hd.depth - (bit & 7))) & ((1 << hd.depth) - 1));
+    }
+  }
+}
+
+// Decodes a PNG file into s->image: (h, w, hd->channels), 8-bit; with
+// `ids`, a gray PNG as (h, w, 2) ids (expand_ids), and hd->channels 2.
+int decode_png(const char* path, Scratch* s, Header* hd, bool ids = false) {
   int st = read_file(path, &s->file);
   if (st != kOk) return st;
   st = parse_chunks(s->file, hd, s);
   if (st != kOk) return st;
+  if (ids) {
+    if (hd->color != 0) return kUnsupported;
+    hd->channels = 2;
+  }
   const int passes = hd->interlace ? 7 : 1;
   size_t need = 0, widest = 0;
   for (int p = 0; p < passes; ++p) {
@@ -370,7 +400,11 @@ int decode_png(const char* path, Scratch* s, Header* hd) {
       if (st != kOk) return st;
       uint8_t* dst = s->image.data() +
                      ((ps.y0 + static_cast<size_t>(r) * ps.dy) * hd->w + ps.x0) * hd->channels;
-      expand_row(*hd, s->palette, row + 1, ps.w, dst, static_cast<int>(ps.dx));
+      if (ids) {
+        expand_ids(*hd, row + 1, ps.w, dst, static_cast<int>(ps.dx));
+      } else {
+        expand_row(*hd, s->palette, row + 1, ps.w, dst, static_cast<int>(ps.dx));
+      }
       prior = row + 1;
       row += 1 + rb;
     }
@@ -420,13 +454,17 @@ void resize_nearest(const View& src, int x0, int x1, int out_h, int out_w, Scrat
     uint8_t* drow = dst + static_cast<size_t>(y) * out_w * c;
     if (c == 1) {
       for (int x = 0; x < out_w; ++x) drow[x] = srow[s->cols[x]];
-    } else {
+    } else if (c == 3) {
       for (int x = 0; x < out_w; ++x) {
         const uint8_t* p = srow + static_cast<size_t>(s->cols[x]) * 3;
         drow[3 * x] = p[0];
         drow[3 * x + 1] = p[1];
         drow[3 * x + 2] = p[2];
       }
+    } else {
+      for (int x = 0; x < out_w; ++x)
+        std::memcpy(drow + static_cast<size_t>(x) * c, srow + static_cast<size_t>(s->cols[x]) * c,
+                    c);
     }
   }
 }
@@ -463,19 +501,48 @@ int load_single(const char* path, int channels, int img_size, int out_size, Scra
   return kOk;
 }
 
-// Runs fn(path, scratch, out row) over the files on up to n_threads threads,
+// pix2pixHD's row: (height, width, 6) = (label, id high, id low, R, G, B),
+// each map nearest-resized to (height, width); a null `inst` or `img`
+// leaves its channels 0. A JPEG image returns kJpeg, for the caller.
+int load_hd(const char* label, const char* inst, const char* img, int height, int width,
+            Scratch* s, uint8_t* out) {
+  const size_t n = static_cast<size_t>(height) * width;
+  std::memset(out, 0, n * 6);
+  struct Part {
+    const char* path;
+    int channels, lo;   // channels in the row, the first of them
+    bool ids;
+  };
+  const Part parts[3] = {{label, 1, 0, false}, {inst, 2, 1, true}, {img, 3, 3, false}};
+  for (const Part& part : parts) {
+    if (part.path == nullptr) continue;
+    Header hd;
+    int st = decode_png(part.path, s, &hd, part.ids);
+    if (st != kOk) return st;
+    const View img_view = part.ids ? View{s->image.data(), static_cast<int>(hd.h),
+                                          static_cast<int>(hd.w), 2}
+                                   : to_channels(hd, part.channels, s);
+    s->mid.resize(n * part.channels);
+    resize_nearest(img_view, 0, img_view.w, height, width, s, s->mid.data());
+    const uint8_t* src = s->mid.data();
+    for (size_t i = 0; i < n; ++i)
+      for (int c = 0; c < part.channels; ++c) out[6 * i + part.lo + c] = src[i * part.channels + c];
+  }
+  return kOk;
+}
+
+// Runs fn(i, scratch, out row) over the files on up to n_threads threads,
 // each taking the next file as it finishes one. status[i] receives file i's
 // status. Returns the 1-based index of the first file that failed other
 // than as a JPEG, or 0.
 template <typename Fn>
-int parallel_files(const char** paths, int n, int n_threads, size_t row_bytes, uint8_t* out,
-                   int* status, Fn fn) {
+int parallel_files(int n, int n_threads, size_t row_bytes, uint8_t* out, int* status, Fn fn) {
   std::atomic<int> next{0};
   auto work = [&]() {
     Scratch s;
     for (int i = next.fetch_add(1); i < n; i = next.fetch_add(1)) {
       try {
-        status[i] = fn(paths[i], &s, out + static_cast<size_t>(i) * row_bytes);
+        status[i] = fn(i, &s, out + static_cast<size_t>(i) * row_bytes);
       } catch (const std::bad_alloc&) {
         status[i] = kNoMemory;
       }
@@ -503,20 +570,28 @@ extern "C" {
 int gtt_load_pair_batch(const char** paths, int n, int channels, int orient_left, int size,
                         uint8_t* out, int n_threads, int* status) {
   const size_t row = 2ull * size * size * channels;
-  return parallel_files(paths, n, n_threads, row, out, status,
-                        [=](const char* p, Scratch* s, uint8_t* dst) {
-                          return load_pair(p, channels, orient_left, size, s, dst);
-                        });
+  return parallel_files(n, n_threads, row, out, status, [=](int i, Scratch* s, uint8_t* dst) {
+    return load_pair(paths[i], channels, orient_left, size, s, dst);
+  });
 }
 
 // out: (n, out_size, out_size, channels) uint8.
 int gtt_load_single_batch(const char** paths, int n, int channels, int img_size, int out_size,
                           uint8_t* out, int n_threads, int* status) {
   const size_t row = static_cast<size_t>(out_size) * out_size * channels;
-  return parallel_files(paths, n, n_threads, row, out, status,
-                        [=](const char* p, Scratch* s, uint8_t* dst) {
-                          return load_single(p, channels, img_size, out_size, s, dst);
-                        });
+  return parallel_files(n, n_threads, row, out, status, [=](int i, Scratch* s, uint8_t* dst) {
+    return load_single(paths[i], channels, img_size, out_size, s, dst);
+  });
+}
+
+// out: (n, height, width, 6) uint8, pix2pixHD's rows (load_hd); an entry of
+// insts or imgs may be null.
+int gtt_load_hd_batch(const char** labels, const char** insts, const char** imgs, int n,
+                      int height, int width, uint8_t* out, int n_threads, int* status) {
+  const size_t row = static_cast<size_t>(height) * width * 6;
+  return parallel_files(n, n_threads, row, out, status, [=](int i, Scratch* s, uint8_t* dst) {
+    return load_hd(labels[i], insts[i], imgs[i], height, width, s, dst);
+  });
 }
 
 // Decodes one file into out (cap bytes) as (h, w, channels); returns its status.

@@ -6,12 +6,14 @@ gan_tpu/ops/resize.py ``resize_nearest_np``).
 A :class:`Rows` is one split's per-file work (decode, split, resize) over a
 list of files. By default it is one call of the native decoder
 (:mod:`gan_tpu_torch.data.native`, the port of gan_tpu's native loader: PNG
-over zlib, on C++ threads, off the GIL). ``pix2pix_rows`` and
-``cyclegan_rows`` make the CLIs' rows, the ``build_*_cache`` functions
+over zlib, on C++ threads, off the GIL). ``pix2pix_rows``,
+``cyclegan_rows`` and ``pix2pixhd_rows`` (whose "files" are (label,
+instance, image) triples) make the CLIs' rows, the ``build_*_cache`` functions
 decode a whole split with them, and a
 :class:`~gan_tpu_torch.data.loader.FileCache` calls them once per batch.
 
-``decode_image``, ``pix2pix_sample`` and ``cyclegan_sample`` are the plain
+``decode_image``, ``pix2pix_sample``, ``cyclegan_sample`` and
+``pix2pixhd_sample`` are the plain
 per-file twins over PIL: a :class:`Rows` sends JPEG files through them one
 at a time (the native decoder reads PNG only), and ``GAN_TPU_NATIVE=0``
 sends every file, on a pool of ``DECODE_WORKERS`` threads.
@@ -94,6 +96,46 @@ def cyclegan_sample(path: str, *, img_size: int, channels: int,
     return resize_nearest_np(img, img_size + JITTER_PAD, img_size + JITTER_PAD) if train else img
 
 
+def decode_ids(path: str) -> np.ndarray:
+    """A gray instance map's ids, uint32 (H, W): 16-bit samples whole."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        if not (im.mode in ("L", "I") or im.mode.startswith("I;16")):
+            raise ValueError(f"{path}: an instance map is a gray PNG, not mode {im.mode}")
+        return np.asarray(im).astype(np.uint32) & 0xFFFF
+
+
+def pix2pixhd_sample(triple: tuple, *, height: int, width: int) -> np.ndarray:
+    """(height, width, 6) uint8: pix2pixHD's row of a (label, instance,
+    image) triple, each map nearest-resized to (height, width):
+    (label id, instance id's high byte, its low byte, R, G, B); a missing
+    instance map or image leaves its channels 0. (pix2pixHD resizes the image
+    bicubically; here every map is resized nearest, as the native decoder
+    does.)"""
+    label, inst, img = triple
+    out = np.zeros((height, width, 6), np.uint8)
+    out[..., :1] = resize_nearest_np(decode_image(label, 1), height, width)
+    if inst is not None:
+        ids = resize_nearest_np(decode_ids(inst)[..., None], height, width)[..., 0]
+        out[..., 1], out[..., 2] = ids >> 8, ids & 0xFF
+    if img is not None:
+        out[..., 3:] = resize_nearest_np(decode_image(img, 3), height, width)
+    return out
+
+
+def hd_size(label_path: str, load_size: int, base: int) -> tuple[int, int]:
+    """pix2pixHD's ``scale_width`` and ``make_power_2`` of the first label
+    map: width ``load_size``, the height that keeps its aspect, each rounded
+    to a multiple of ``base`` (2^n_downsample_global)."""
+    h, w = native.png_size(label_path)
+    if not (h and w):
+        raise ValueError(f"{label_path}: not a PNG whose size can be read")
+    height = int(load_size * h / w)
+    return (max(base, int(round(height / base) * base)),
+            max(base, int(round(load_size / base) * base)))
+
+
 def decode_all(paths: Sequence[str], sample: Callable[[str], np.ndarray], out: np.ndarray,
                workers: int = DECODE_WORKERS) -> np.ndarray:
     """``out[i] = sample(paths[i])`` for every path, on a pool of
@@ -166,6 +208,14 @@ def cyclegan_rows(*, img_size: int, channels: int, train: bool = False, **kw) ->
                 (size, size, channels),
                 functools.partial(native.load_single_batch, channels=channels,
                                   img_size=img_size, out_size=size), **kw)
+
+
+def pix2pixhd_rows(*, height: int, width: int, **kw) -> Rows:
+    """:class:`Rows` of :func:`pix2pixhd_sample`: (height, width, 6) per
+    (label, instance, image) triple."""
+    return Rows(functools.partial(pix2pixhd_sample, height=height, width=width),
+                (height, width, 6),
+                functools.partial(native.load_hd_batch, height=height, width=width), **kw)
 
 
 def build_pix2pix_cache(paths: list[str], *, img_size: int, channels: int, orient: str,

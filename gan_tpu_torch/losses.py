@@ -8,7 +8,13 @@
 * ``pix2pix_generator_loss``: (adversarial + λ · secondary, adversarial,
   secondary);
 * ``cycle_loss``: λ · mean|real − cycled|;
-* ``identity_loss``: λ · 0.5 · mean|real − same|.
+* ``identity_loss``: λ · 0.5 · mean|real − same|;
+* pix2pixHD's (NVIDIA/pix2pixHD models/pix2pixHD_model.py and networks.py):
+  ``lsgan_loss``, the MSE of each scale's patch scores against 1 or 0,
+  summed over the scales; ``feature_matching_loss``, λ_feat · 4 / (n_layers
+  + 1) / num_D · Σ L1(D(fake)'s feature, D(real)'s, detached) over the
+  scales and the intermediate features; ``vgg_loss``, λ_feat · Σ wᵢ ·
+  L1(VGG(fake)ᵢ, VGG(real)ᵢ detached).
 
 ``PIX2PIX_LOSS_KEYS`` and ``CYCLEGAN_LOSS_KEYS`` name the metrics JSON
 entries and the figure files, byte for byte as in the reference. gan_tpu's
@@ -39,6 +45,7 @@ CYCLEGAN_LOSS_KEYS = (
     "Discriminator X Loss",
     "Discriminator Y Loss",
 )
+PIX2PIXHD_LOSS_KEYS = ("G_GAN", "G_GAN_Feat", "G_VGG", "D_real", "D_fake")   # pix2pixHD's names
 
 
 def empty_losses(keys) -> dict:
@@ -79,3 +86,27 @@ def cycle_loss(real, cycled, lam: float):
 
 def identity_loss(real, same, lam: float):
     return lam * 0.5 * l1_loss(real, same)
+
+
+def lsgan_loss(scales, real: bool):
+    """Σ over the scales of mean((patch scores − target)²), the target 1 or 0;
+    ``scales``: each scale's outputs, the patch scores last."""
+    target = 1.0 if real else 0.0
+    return sum((outs[-1].float() - target).square().mean() for outs in scales)
+
+
+def feature_matching_loss(fake_scales, real_scales, *, n_layers: int, lam: float):
+    """pix2pixHD's discriminator feature matching: the L1 between D(fake)'s
+    and D(real)'s intermediate features, D(real)'s detached, weighted
+    4 / (n_layers + 1) · 1 / num_D · λ_feat."""
+    weight = 4.0 / (n_layers + 1) / len(fake_scales) * lam
+    return sum(weight * (f.float() - r.detach().float()).abs().mean()
+               for fake, real in zip(fake_scales, real_scales)
+               for f, r in zip(fake[:-1], real[:-1]))
+
+
+def vgg_loss(fake_taps, real_taps, weights, *, lam: float):
+    """pix2pixHD's VGGLoss times λ_feat: Σ wᵢ · L1(fake tap i, real tap i
+    detached)."""
+    return lam * sum(w * (f.float() - r.detach().float()).abs().mean()
+                     for w, f, r in zip(weights, fake_taps, real_taps))

@@ -90,3 +90,48 @@ def conv2d_transpose_up(x, w, stride: int = 2, *, compute_dtype=None):
     if lo_h != hi_h or lo_w != hi_w:   # k - s odd; never so for the U-Net's k=4, s=2
         raise ValueError(f"asymmetric 'same' transposed conv (k={k}, s={stride}) is not supported")
     return _nhwc(F.conv_transpose2d(_nchw(x), w, stride=stride, padding=(lo_h, lo_w)))
+
+
+# pix2pixHD's ops (gan_tpu_torch/models/resnet_generator.py, models/multiscale_d.py,
+# models/vgg.py): PyTorch's explicit symmetric padding, beside the TF-'same' ones above
+
+def conv2d_pad(x, w, bias=None, *, stride: int = 1, pad: int = 0, compute_dtype=None):
+    """``nn.Conv2d(k, stride, padding=pad)``: zero padding of ``pad`` on every
+    side, then the conv and its bias. x: (N, H, W, C_in); w: (C_out, C_in, k,
+    k); bias: (C_out,) or None. Output (N, (H + 2·pad − k) // stride + 1, ...,
+    C_out)."""
+    x, w = _cast(x, w, compute_dtype)
+    if bias is not None:
+        bias = bias.to(w.dtype)
+    return _nhwc(F.conv2d(_nchw(x), w, bias, stride=stride, padding=pad))
+
+
+def conv_transpose2d(x, w, bias=None, *, stride: int = 2, pad: int = 1,
+                     output_padding: int = 1, compute_dtype=None):
+    """``nn.ConvTranspose2d(k, stride, padding=pad, output_padding)``, pix2pixHD's
+    upsampling (k3 s2 p1 op1 doubles H and W). x: (N, H, W, C_in); w: (C_in,
+    C_out, k, k); bias: (C_out,) or None."""
+    x, w = _cast(x, w, compute_dtype)
+    if bias is not None:
+        bias = bias.to(w.dtype)
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, bias, stride=stride, padding=pad,
+                                    output_padding=output_padding))
+
+
+def reflection_pad(x, pad: int):
+    """``nn.ReflectionPad2d(pad)`` of an NHWC tensor: ATen's reflection-pad
+    kernel in its 3-d form on the (N, 1, H, W, C) view, which pads H and W
+    and leaves C whole, so the NHWC tensor is padded where it lies (the 2-d
+    form on the NCHW view would copy it to NCHW and back)."""
+    return F.pad(x[:, None], (0, 0, pad, pad, pad, pad), mode="reflect")[:, 0]
+
+
+def avg_pool3_s2(x):
+    """``nn.AvgPool2d(3, stride=2, padding=1, count_include_pad=False)`` of an
+    NHWC tensor: the mean of the window's pixels inside the image, the
+    multiscale discriminator's downsampling. It pools an NCHW copy: ATen's
+    channels-last average pool takes a wrong backward with
+    ``count_include_pad=False`` on the card (torch 2.11; its forward is
+    right)."""
+    y = F.avg_pool2d(_nchw(x).contiguous(), 3, stride=2, padding=1, count_include_pad=False)
+    return _nhwc(y)

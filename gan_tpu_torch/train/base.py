@@ -92,7 +92,7 @@ from gan_tpu_torch.models.blocks import keep_mask
 from gan_tpu_torch.ops import kernels
 from gan_tpu_torch.parallel import Replicas, stripe_rows
 from gan_tpu_torch.train import loop
-from gan_tpu_torch.train.optim import adam
+from gan_tpu_torch.train.optim import TF_ADAM_EPS, adam
 from gan_tpu_torch.train.recovery import FaultFence
 from gan_tpu_torch.utils.grids import save_image_grid
 from gan_tpu_torch.utils.profiling import COUNTERS, profile_dir_from_env, span, trace
@@ -162,7 +162,9 @@ class GANTrainer:
     names into gradient groups, in the order the step takes their gradients;
     ``sampler`` names the generator that ``generate`` runs; ``replicas``
     (default: one, on the default device) says where the trainer runs and
-    with which other replicas."""
+    with which other replicas. ``ADAM_EPS`` is every network's Adam epsilon."""
+
+    ADAM_EPS = TF_ADAM_EPS
 
     def __init__(self, config, nets: dict, groups: tuple, sampler: str, replicas: Replicas):
         self.config = config
@@ -177,7 +179,7 @@ class GANTrainer:
         self.nets = {name: net.to(self.device) for name, net in nets.items()}
         self.params = {name: list(net.parameters()) for name, net in self.nets.items()}
         self.opts = {name: adam(p, config.learning_rate, config.beta_1, config.beta_2,
-                                capturable=self.device.type == "cuda")
+                                eps=self.ADAM_EPS, capturable=self.device.type == "cuda")
                      for name, p in self.params.items()}
         self.sampler = self.nets[sampler]
         self._sample_calls = 0   # fresh dropout draws per generate() call

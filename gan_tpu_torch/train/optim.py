@@ -20,6 +20,7 @@ TF_ADAM_EPS = 1e-7  # tf.keras.optimizers.Adam default
 
 
 def adam(params, learning_rate: float, beta_1: float = 0.5, beta_2: float = 0.999, *,
-         capturable: bool = False) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=learning_rate, betas=(beta_1, beta_2), eps=TF_ADAM_EPS,
+         eps: float = TF_ADAM_EPS, capturable: bool = False) -> torch.optim.Adam:
+    """``eps``: tf.keras' by default; pix2pixHD's trainer passes torch's 1e-8."""
+    return torch.optim.Adam(params, lr=learning_rate, betas=(beta_1, beta_2), eps=eps,
                             capturable=capturable)

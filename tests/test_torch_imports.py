@@ -37,6 +37,9 @@ def test_port_and_chip_smoke_import_no_jax_orbax_pil_matplotlib():
         "import gan_tpu_torch.tools.eval_quality, gan_tpu_torch.data.native\n"
         "import gan_tpu_torch.parallel, gan_tpu_torch.parallel.mesh\n"
         "import gan_tpu_torch.train.recovery, gan_tpu_torch.train.checkpoint\n"
+        "import gan_tpu_torch.pix2pixhd, gan_tpu_torch.train.pix2pixhd_trainer\n"
+        "import gan_tpu_torch.models.resnet_generator, gan_tpu_torch.models.multiscale_d\n"
+        "import gan_tpu_torch.models.vgg, gan_tpu_torch.data.labels\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'PIL', 'matplotlib',\n"

@@ -355,3 +355,35 @@ def test_stem_bf16_kernel_reruns_bit_identical(cuda_device, c_in):
     runs = [kernels.stem_conv(x, w, compute_dtype=torch.bfloat16) for _ in range(2)]
     assert torch.equal(*runs)
 
+
+
+# pix2pixHD at batch 1: the generator's largest site (unstaged, 32 blocks),
+# the residual blocks' 32x64x1024, and the discriminators' non-square sites;
+# its norms have no affine parameters (scale 1, offset 0)
+HD_SHAPES = [(1, 512, 1024, 64), (1, 256, 512, 128), (1, 32, 64, 1024), (1, 129, 257, 128),
+             (1, 66, 130, 512), (1, 33, 65, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", HD_SHAPES)
+def test_instance_norm_kernels_at_the_pix2pixhd_sites(cuda_device, shape, dtype):
+    """K1 and K2 against the plain versions with constant ones and zeros,
+    the tolerances above."""
+    x, _, _ = (torch.from_numpy(a).to(cuda_device) for a in norm_inputs(shape))
+    x = x.to(dtype)
+    ones = torch.ones(shape[-1], device=cuda_device)
+    zeros = torch.zeros(shape[-1], device=cuda_device)
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(shape).astype(np.float32))
+    dy = dy.to(cuda_device, dtype)
+    got = kernels.instance_norm(x, ones, zeros)
+    got_bwd = kernels.instance_norm_backward(x, ones, dy)
+    torch.cuda.synchronize()
+    atol, rtol = (NORM_ATOL, 1e-5) if dtype == torch.float32 else (1e-3, 2 ** -7)
+    torch.testing.assert_close(got.float(), norm.instance_norm(x, ones, zeros).float(),
+                               atol=atol, rtol=rtol)
+    want = norm.instance_norm_backward(x, ones, dy)
+    atol, rtol = DX_TOL[dtype]
+    torch.testing.assert_close(got_bwd[0].float(), want[0].float(), atol=atol, rtol=rtol)
+    for g, w in zip(got_bwd[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=sums_tol(shape), rtol=1e-5)

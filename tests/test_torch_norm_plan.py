@@ -131,3 +131,43 @@ def test_norm_plan_misaligned_or_narrow_loads_one_channel_unstaged():
     for plan in (kernels.norm_plan(2, 4096, 64, torch.bfloat16, aligned=False),
                  kernels.norm_plan(2, 4096, 3, torch.float32)):
         assert (plan.vec, plan.staged, plan.channel_tile) == (1, 0, 32)
+
+
+# pix2pixHD label2city_512p at batch 1 (portbench's pix2pixhd-512p): the
+# generator's sites from 512x1024x64 to the nine blocks' 32x64x1024 and the
+# two discriminators' non-square sites, as (H·W, C)
+HD_GEN_SITES = [(512 * 1024, 64), (256 * 512, 128), (128 * 256, 256), (64 * 128, 512),
+                (32 * 64, 1024)]
+HD_DISC_SITES = [(129 * 257, 128), (65 * 129, 256), (66 * 130, 512), (65 * 129, 128),
+                 (33 * 65, 256), (34 * 66, 512)]
+HD_UNSTAGED = {(512 * 1024, 64), (256 * 512, 128)}   # bands past shared memory even at 16 blocks
+# sha256 of repr([(n, hw, c, dtype, backward, plan)]) over PATH_CASES + CASES_512, both
+# dtypes and directions: the CycleGAN and Pix2Pix sites' plans before pix2pixHD came
+PLANS_BEFORE_PIX2PIXHD = "6dd12b679b762ec612145fb6c1bc5444b00b7e019eac756e26200ed3afd99531"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,c", HD_GEN_SITES + HD_DISC_SITES)
+def test_norm_plan_covers_the_pix2pixhd_sites_at_batch_one(hw, c, dtype):
+    """One instance per (sample, tile): the plans stay within a cluster of
+    16 and shared memory; every site stages x's band but the two largest,
+    whose bands exceed shared memory even at 16 blocks (the unstaged path
+    at its largest: 512x1024x64 is 8x the 512² U-Net's 256²x64 site)."""
+    for backward in (False, True):
+        plan = kernels.norm_plan(1, hw, c, dtype, backward=backward)
+        _assert_schedulable_cover(plan, 1, hw, c, dtype)
+        assert (plan.staged >= 1) == ((hw, c) not in HD_UNSTAGED)
+        if (hw, c) in HD_UNSTAGED:
+            assert plan.k == kernels.MAX_CLUSTER
+        fwd = kernels.norm_plan(1, hw, c, dtype)
+        assert (fwd.k, fwd.channel_tile, fwd.rows_per_block) == (
+            plan.k, plan.channel_tile, plan.rows_per_block)
+
+
+def test_the_existing_sites_keep_their_plans():
+    import hashlib
+    plans = [(n, hw, c, str(dt), b, tuple(kernels.norm_plan(n, hw, c, dt, backward=b)))
+             for n, hw, c in sorted(set(PATH_CASES + CASES_512)) for dt in DTYPES
+             for b in (False, True)]
+    assert len(plans) == 592
+    assert hashlib.sha256(repr(plans).encode()).hexdigest() == PLANS_BEFORE_PIX2PIXHD

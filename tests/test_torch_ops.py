@@ -121,3 +121,79 @@ def test_list_images_matches_gan_tpu(tmp_path):
         (tmp_path / name).write_bytes(b"")
     assert sorted(list_images(str(tmp_path))) == sorted(jax_list_images(str(tmp_path)))
     assert sorted(list_images(str(tmp_path))) == sorted(["a.png", "b.jpg", "pngfile"])
+
+
+# ------------------------------------------------------------ pix2pixHD's ops
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("k,stride,pad,hw", [(3, 1, 1, (9, 14)), (3, 2, 1, (16, 32)),
+                                             (4, 2, 2, (17, 33)), (4, 1, 2, (5, 9)),
+                                             (7, 1, 0, (12, 20))])
+def test_conv2d_pad_equals_nn_conv2d(k, stride, pad, hw):
+    """pix2pixHD's convs: k3 p1 at stride 1 and 2, the discriminators' k4 p2,
+    the 7x7 after a reflection pad; with their biases."""
+    torch.manual_seed(k * 10 + stride)
+    m = torch.nn.Conv2d(5, 7, k, stride=stride, padding=pad)
+    x = torch.randn(2, *hw, 5)
+    got = conv.conv2d_pad(x, m.weight, m.bias, stride=stride, pad=pad)
+    want = m(_nchw(x)).permute(0, 2, 3, 1)
+    assert got.is_contiguous() and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=CONV_ATOL)
+
+
+@pytest.mark.parametrize("hw", [(2, 4), (5, 7), (8, 16)])
+def test_conv_transpose2d_equals_nn_conv_transpose2d(hw):
+    """k3 s2 p1 output_padding 1: the size doubles, which the TF-'same'
+    ``conv2d_transpose_up`` refuses (k − s odd)."""
+    torch.manual_seed(3)
+    m = torch.nn.ConvTranspose2d(6, 4, 3, stride=2, padding=1, output_padding=1)
+    x = torch.randn(2, *hw, 6)
+    got = conv.conv_transpose2d(x, m.weight, m.bias)
+    want = m(_nchw(x)).permute(0, 2, 3, 1)
+    assert got.shape == (2, 2 * hw[0], 2 * hw[1], 4) == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=CONV_ATOL)
+    with pytest.raises(ValueError, match="asymmetric"):
+        conv.conv2d_transpose_up(x, m.weight)
+
+
+@pytest.mark.parametrize("pad", [1, 3])
+def test_reflection_pad_equals_nn_reflection_pad2d(pad):
+    x = torch.randn(2, 6, 9, 5)
+    got = conv.reflection_pad(x, pad)
+    want = torch.nn.ReflectionPad2d(pad)(_nchw(x)).permute(0, 2, 3, 1)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [(32, 64), (17, 33), (5, 9), (1, 2)])
+def test_avg_pool3_s2_equals_nn_avg_pool2d_without_the_pad(hw):
+    x = torch.randn(2, *hw, 4)
+    got = conv.avg_pool3_s2(x)
+    want = torch.nn.AvgPool2d(3, stride=2, padding=1, count_include_pad=False)(_nchw(x))
+    torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=0, atol=1e-6)
+    corner = x[:, :2, :2].mean(dim=(1, 2))   # the window's pixels inside the image, not 9
+    torch.testing.assert_close(got[:, 0, 0], corner, rtol=0, atol=1e-6)
+
+
+def test_edges_and_one_hot_equal_the_references():
+    """pix2pixHD's inputs (``data.labels``) against NVIDIA's ``get_edges``
+    and ``scatter_`` one-hot in tests/pix2pixhd_reference.py, flipped rows
+    included."""
+    import pix2pixhd_reference as ref
+    from gan_tpu_torch.data import labels
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 4, (3, 6, 9), generator=g).repeat_interleave(2, 1)
+    ids = ids.repeat_interleave(2, 2) * 300
+    assert torch.equal(labels.edges(ids), ref.get_edges(ids[:, None])[:, 0].bool())
+    rows = torch.randint(0, 256, (3, 12, 18, 6), generator=g, dtype=torch.uint8)
+    rows[..., 0] %= 35
+    rows[..., 1:3] = torch.stack([ids >> 8, ids & 255], -1).to(torch.uint8)
+    flip = torch.tensor([True, False, True])
+    for instance in (True, False):
+        config = {"label_nc": 35, "no_instance": not instance}
+        x, y = labels.hd_inputs(rows, flip, label_nc=35, instance=instance)
+        rx, ry = ref.encode_input(rows, flip, config)
+        assert torch.equal(x, rx.permute(0, 2, 3, 1)) and torch.equal(y, ry.permute(0, 2, 3, 1))
+    assert torch.equal(labels.flip_rows(rows, flip)[0], rows[0].flip(1))

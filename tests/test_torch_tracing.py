@@ -234,3 +234,60 @@ def test_a_traced_first_epoch_records_the_capture_from_outside(cuda_trainers, ki
     _assert_close_losses(got, _old_epoch(eager, train, 0, True), f"{kind} traced epoch 0")
     _assert_close_losses(graph.run_epoch(*train, 1, training=True),
                          _old_epoch(eager, train, 1, True), f"{kind} epoch 1")
+
+
+def _pix2pixhd_trainer(device=None):
+    from gan_tpu_torch.config import Pix2PixHDConfig
+    from gan_tpu_torch.parallel import Replicas
+    from gan_tpu_torch.train.pix2pixhd_trainer import Pix2PixHDTrainer
+    cfg = Pix2PixHDConfig(ngf=8, n_downsample_global=2, n_blocks_global=2, ndf=16,
+                          batch_size=2, dtype="fp32" if device is None else "bf16",
+                          load_size=64, no_vgg_loss=True)
+    return Pix2PixHDTrainer(cfg, None if device is None else Replicas(device=device))
+
+
+def _hd_rows(n, device=None):
+    rows = torch.randint(0, 256, (n, 32, 64, 6), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.uint8)
+    rows[..., 0] %= 35
+    return rows if device is None else rows.to(device)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_a_traced_pix2pixhd_pass_opens_the_runners_spans(training):
+    """pix2pixHD's trainer reaches the card only through the shared runner:
+    a traced resident pass of 5 rows at batch 2 opens one ``epoch``,
+    ``epoch.plan`` and ``epoch.fetch``, a ``runner.prepare`` a full step, a
+    ``step.eager`` for each eager step and the tail, every span inside
+    ``epoch`` and named in ``SPANS``."""
+    trainer = _pix2pixhd_trainer()
+    eager = trainer.epoch_counts["eager"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        losses = trainer.run_epoch(_hd_rows(5), 0, training=training)
+    assert losses.shape == (3, 5)
+    spans = _program_spans(prof)
+    assert {name for name, _a, _b in spans} <= set(SPANS)
+    assert [_count(spans, s) for s in ("epoch", "epoch.plan", "epoch.fetch")] == [1, 1, 1]
+    assert _count(spans, "runner.prepare") == 2
+    assert _count(spans, "step.eager") == trainer.epoch_counts["eager"] - eager + 1
+    (_, start, end), = [s for s in spans if s[0] == "gan_tpu_torch.epoch"]
+    assert all(start <= a <= b <= end for _name, a, b in spans)
+
+
+@pytest.mark.cuda
+def test_a_traced_pix2pixhd_epoch_records_its_capture_from_outside():
+    """On the card the first train pass warms up eagerly, captures once
+    (``runner.capture``, counted in ``runner.capture_seconds``) with no
+    program span inside, and replays every later full step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    device = torch.device("cuda")
+    trainer = _pix2pixhd_trainer(device)
+    before = COUNTERS.snapshot().get("runner.capture_seconds", 0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run_epoch(_hd_rows(9, device), 0, training=True)
+    spans = _program_spans(prof)
+    (_, c0, c1), = [s for s in spans if s[0] == "gan_tpu_torch.runner.capture"]
+    assert not [s for s in spans if c0 < s[1] < c1]
+    assert _count(spans, "runner.replay") == 3 == trainer.epoch_counts["replays"]   # 4 full steps
+    assert COUNTERS.snapshot()["runner.capture_seconds"] > before
